@@ -1,0 +1,160 @@
+"""Geometry: material 'flag' predicates and the edge-DoF mask on the
+staggered grid.
+
+A numpy copy of the flag predicates and ``edge_mask`` of ``pcx/geometry.py``
+(the port never imports ``pcx``).  The material region is a boolean
+(3, N, N, N) mask, one bool per Yee edge DoF, axis order (component, i, j,
+k).  There is no native engine and no on-disk cache: the numpy build takes
+seconds at N=120 and runs once per solver.
+
+Flag predicates re-derive the geometric definitions of
+paper_2/dielectric.py:157-261 on broadcast coordinate grids.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+
+from pcx_torch import lattices
+
+_PI = np.pi
+
+
+def _axis_coords(n: int, half: bool) -> np.ndarray:
+    """(arange(n) + 0.5*half) / n."""
+    c = np.arange(n, dtype=np.float64)
+    if half:
+        c = c + 0.5
+    return c / n
+
+
+def edge_coords(n: int, component: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Broadcastable (x, y, z) coordinates of edge DoFs for one component.
+
+    Component c has a +1/2 offset along axis c (Yee grid,
+    reference: dielectric.py:104-117).  Shapes: (n,1,1), (1,n,1), (1,1,n).
+    """
+    x = _axis_coords(n, component == 0).reshape(n, 1, 1)
+    y = _axis_coords(n, component == 1).reshape(1, n, 1)
+    z = _axis_coords(n, component == 2).reshape(1, 1, n)
+    return x, y, z
+
+
+def _transform(coords, ct_inv_t: np.ndarray):
+    """Apply the row-vector transform  r' = r @ inv(CT^T)
+    (reference: dielectric.py:86)."""
+    x, y, z = coords
+    m = ct_inv_t
+    tx = x * m[0, 0] + y * m[1, 0] + z * m[2, 0]
+    ty = x * m[0, 1] + y * m[1, 1] + z * m[2, 1]
+    tz = x * m[0, 2] + y * m[1, 2] + z * m[2, 2]
+    return tx, ty, tz
+
+
+def flag_sc_flat1(x, y, z):
+    """Three orthogonal flat bars of square cross-section 0.25
+    (reference: dielectric.py:157-162)."""
+    return (((x <= 0.25) & (y <= 0.25))
+            | ((x <= 0.25) & (z <= 0.25))
+            | ((y <= 0.25) & (z <= 0.25)))
+
+
+def flag_sc_flat2(x, y, z):
+    """Staggered flat-bar network (reference: dielectric.py:164-170)."""
+    return (((x <= 0.25) & (y <= 0.25))
+            | ((x <= 0.25) & (z >= 0.25) & (z <= 0.5))
+            | ((y >= 0.5) & (y <= 0.75) & (z >= 0.5) & (z <= 0.75))
+            | ((x >= 0.5) & (x <= 0.75) & (z >= 0.75)))
+
+
+def flag_sc_curv(x, y, z):
+    """Central sphere R=0.345 plus three axis cylinders r=0.11
+    (reference: dielectric.py:173-181)."""
+    r1, big_r1 = 0.11, 0.345
+    cx, cy, cz = x - 0.5, y - 0.5, z - 0.5
+    x2, y2, z2 = cx * cx, cy * cy, cz * cz
+    return ((x2 + y2 + z2 <= big_r1**2)
+            | (x2 + y2 <= r1**2)
+            | (x2 + z2 <= r1**2)
+            | (y2 + z2 <= r1**2))
+
+
+def _gyroid(x, y, z):
+    return (np.sin(2 * _PI * x) * np.cos(2 * _PI * y)
+            + np.sin(2 * _PI * y) * np.cos(2 * _PI * z)
+            + np.sin(2 * _PI * z) * np.cos(2 * _PI * x))
+
+
+def flag_bcc_sg(x, y, z):
+    """Single gyroid, level set g > 1.1 (reference: dielectric.py:186-199)."""
+    return _gyroid(x, y, z) > 1.1
+
+
+def flag_bcc_dg(x, y, z):
+    """Double gyroid, |g| > 1.1 (reference: dielectric.py:186-199)."""
+    return np.abs(_gyroid(x, y, z)) > 1.1
+
+
+def flag_fcc(x, y, z):
+    """FCC network: 18 spheres (r=0.12) + 16 ellipsoidal connectors
+    (reference: dielectric.py:201-261)."""
+    r = 0.12
+    b_val = 0.11
+
+    # fcc basis points (columns of `a` in the reference) and cell center.
+    basis = np.array([[0, 0, 0.5, 0.5],
+                      [0, 0.5, 0, 0.5],
+                      [0, 0.5, 0.5, 0]], dtype=np.float64)
+    cnt = np.full(3, 0.25)
+
+    # 14 corner/face points + the 4 points cnt + basis  -> 18 sphere centers.
+    corners = np.array([
+        [0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [0, 1, 1], [1, 0, 1],
+        [1, 1, 0], [1, 1, 1], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0],
+        [1, 0.5, 0.5], [0.5, 1, 0.5], [0.5, 0.5, 1],
+    ], dtype=np.float64).T
+    centers = np.hstack((corners, cnt[:, None] + basis))  # (3, 18)
+
+    shape = np.broadcast_shapes(np.shape(x), np.shape(y), np.shape(z))
+    mask = np.zeros(shape, dtype=bool)
+    for ctr in centers.T:
+        d2 = (x - ctr[0]) ** 2 + (y - ctr[1]) ** 2 + (z - ctr[2]) ** 2
+        mask |= d2 < r * r
+
+    # 4 ellipsoid directions: from cell center cnt to each basis point,
+    # replicated at the 4 basis translations -> 16 ellipsoids.
+    for i in range(4):
+        o = (basis[:, i] + cnt) / 2
+        d = (basis[:, i] - cnt) / 2
+        c_i = np.linalg.norm(d)
+        d = d / c_i
+        a_val = np.hypot(b_val, c_i)
+        for j in range(4):
+            ctr = o + basis[:, j]
+            dx, dy, dz = x - ctr[0], y - ctr[1], z - ctr[2]
+            l1 = (d[0] * dx + d[1] * dy + d[2] * dz) ** 2
+            l2 = dx * dx + dy * dy + dz * dz - l1
+            mask |= (l1 / a_val**2 + l2 / b_val**2) < 1
+    return mask
+
+
+FLAG_REGISTRY: Dict[str, Callable] = {
+    "sc_flat1": flag_sc_flat1,
+    "sc_flat2": flag_sc_flat2,
+    "sc_curv": flag_sc_curv,
+    "bcc_sg": flag_bcc_sg,
+    "bcc_dg": flag_bcc_dg,
+    "fcc": flag_fcc,
+}
+
+
+def edge_mask(n: int, lattice: str) -> np.ndarray:
+    """Boolean (3, N, N, N) mask of material edge DoFs."""
+    ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
+    flag = FLAG_REGISTRY[lattice]
+    mask = np.empty((3, n, n, n), dtype=bool)
+    for c in range(3):
+        mask[c] = flag(*_transform(edge_coords(n, c), ct_inv_t))
+    return mask

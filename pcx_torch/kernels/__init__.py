@@ -1,0 +1,23 @@
+"""The port's hand-written CUDA kernels (sm_90a), one per Pallas TPU kernel
+on the single-k-point path:
+
+* K1 ``resid_precond`` — replaces ``fused_resid_precond``;
+* K2 ``axis_dft``      — replaces ``axis_dft_pairs``.
+
+Each wrapper counts its launches in a plain integer attribute
+(``resid_precond.launches``), incremented only where the kernel launches.
+"""
+
+from pcx_torch.kernels.axis_dft import axis_dft
+from pcx_torch.kernels.resid_precond import resid_precond
+
+WRAPPERS = (resid_precond, axis_dft)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

@@ -1,0 +1,102 @@
+"""Build and bind the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into ONE shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers:
+a build takes seconds, not minutes).  The build runs at first use, into
+``pcx_torch/_build/`` (git-ignored), under a file name keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads.
+The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
+kept beside the library as ``<name>.log``.
+
+Nothing here runs at import: the CPU tests import every module of the port
+on a host with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points: name -> (argtypes, restype).  Pointers and the stream are
+# c_void_p: left undeclared, ctypes would pass them as 32-bit ints.
+SIGNATURES = {
+    "pcx_resid_precond": ([_P] * 8 + [_I, _LL, _P], _I),
+    "pcx_resid_precond_blocks": ([_LL], _I),
+    "pcx_axis_dft": ([_P] * 3 + [_I] * 5 + [_P], _I),
+}
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
+    toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of pcx_torch are "
+                       "built from source and need the CUDA toolkit")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libpcx_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library unless a build of the same sources exists;
+    returns its path.  Raises with the compiler's output on failure."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out.stdout}{out.stderr}")
+    with open(os.path.splitext(path)[0] + ".log", "w") as f:
+        f.write(out.stdout + out.stderr)
+    os.replace(tmp, path)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the library, with every entry point's
+    signature declared."""
+    lib = ctypes.CDLL(build())
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")

@@ -1,0 +1,274 @@
+"""The production soft-locking LOBPCG of pcx, as a Python loop on complex
+tensors.
+
+Port of ``pcx/solvers/lobpcg_rs.py`` (``rs_solver_parts`` composed as
+``lobpcg_sep_rs``, lines 43-605): fixed-shape masked soft locking,
+SVQB-with-dropping orthonormalization, the stacked [X|W|P]
+complex128-accumulated Rayleigh-Ritz, HX/HP refresh, the FLOOR heuristics
+(``floor_patience``, ``col_patience``, ``lam_tol``/``lam_patience``/
+``lam_res_tol``) and the NaN, stagnation and blow-up guards.  The reference
+algorithm is lobpcg_sep_softlock, paper_2/lobpcg.py:325-492.
+
+The big blocks stay on the device.  Once per iteration the (m,) residual
+norms and Ritz values come back to the host in ONE transfer, and the
+status bookkeeping of the JAX while-loop runs there on numpy scalars in the
+iterate's real dtype; the active-column mask goes back as an (m,) tensor.
+The loop issues no other synchronization of its own (``torch.linalg.eigh``
+on CUDA checks its error flag on the host, which synchronizes).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from pcx_torch.config import MAXITER, TOL
+from pcx_torch.solvers import rayleigh_ritz as rr
+from pcx_torch.solvers.lobpcg import SolveResult, Status
+from pcx_torch.utils import real_dtype
+
+_NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
+MAXSTAGNITER = 50   # stagnation window of the blow-up guard
+
+
+class _Tracker:
+    """Host-side twin of the JAX loop state's scalar bookkeeping: residual
+    history, best residuals, per-column floor locks and the Ritz-stillness
+    counter, all in the iterate's real dtype (body_fun, lobpcg_rs.py:246-355).
+    """
+
+    def __init__(self, m, nev, tol, maxiter, floor_patience,
+                 col_patience, lam_tol, lam_patience, lam_res_tol,
+                 noise_floor, f):
+        self.f = f
+        self.nev, self.tol = nev, f(tol)
+        self.floor_patience, self.col_patience = floor_patience, col_patience
+        self.lam_tol, self.lam_patience = lam_tol, lam_patience
+        self.res_cap_fac = f(lam_res_tol * 4.0 * np.pi)
+        self.gate_fac = f(10.0 * noise_floor / 30.0)
+        self.res_his = np.full((maxiter,), np.nan, f)
+        self.best_res, self.best_it = f(np.inf), 0
+        self.best_res_c = np.full((m,), np.inf, f)
+        self.best_it_c = np.zeros((m,), np.int64)
+        self.lam_still = 0
+        self.prev_lam = None
+
+    def update(self, it: int, res: np.ndarray, lam: np.ndarray):
+        """(status, active mask) of iteration ``it`` from its residual norms
+        and the current Ritz values."""
+        f, nev = self.f, self.nev
+        one = f(1.0)
+        if self.lam_tol > 0.0 and self.prev_lam is not None:
+            # Ritz movement of the previous step (JAX: step() of it - 1);
+            # NaN movement compares False and resets the counter.
+            move = np.max(np.abs(lam[:nev] - self.prev_lam[:nev])
+                          / np.maximum(np.abs(lam[:nev]), one))
+            self.lam_still = self.lam_still + 1 if move < self.lam_tol else 0
+        self.prev_lam = lam
+        res_max = np.max(res[:nev])
+        res_nev = np.sqrt(np.sum(res[:nev] * res[:nev], dtype=f))
+        self.res_his[it] = res_nev
+        last = len(self.res_his) - 1      # JAX clamps out-of-range reads
+        first_rec = self.res_his[min(1, last)]
+        if res_max < self.best_res * f(0.95):
+            self.best_res, self.best_it = res_max, it
+        since_best = it - self.best_it
+        floor_gate = self.gate_fac * np.maximum(np.max(np.abs(lam)), one)
+        fp = self.floor_patience
+        floored = bool(fp > 0 and since_best > fp and it > 3
+                       and res_max < floor_gate)
+        res_cap = self.res_cap_fac * np.sqrt(np.maximum(np.abs(lam[:nev]),
+                                                        one))
+        res_cap_ok = bool(np.all(res[:nev] < res_cap))
+        floored |= fp > 0 and it > 3 and res_cap_ok and since_best > 4 * fp + 4
+        if self.lam_tol > 0.0:
+            floored |= (it > 3 and res_cap_ok
+                        and self.lam_still >= self.lam_patience)
+
+        improved_c = res < self.best_res_c * f(0.95)
+        regressed_c = res > f(3.0) * self.best_res_c
+        upd = improved_c | regressed_c
+        self.best_res_c = np.where(upd, res, self.best_res_c)
+        self.best_it_c = np.where(upd, it, self.best_it_c)
+        cp = self.col_patience
+        if cp > 0:
+            col_gate = self.gate_fac * np.maximum(np.abs(lam), one)
+            idle = it - self.best_it_c
+            col_floored = (((idle > cp) & (it > 3) & (res < col_gate))
+                           | ((it > 3) & (idle > 4 * cp + 4)))
+        else:
+            col_floored = np.zeros(res.shape, bool)
+        active = (res > self.tol) & ~col_floored
+
+        ms = MAXSTAGNITER
+        stagn_ref = np.maximum(first_rec, f(10.0) * floor_gate)
+        stagn = ((it > ms and (res[0] > 1000.0 or res[0] > stagn_ref))
+                 or (it > 2 * ms and res[0] > 50.0))
+        recovering = res_nev < self.res_his[min(ms // 2, last)] * f(0.1)
+        if np.isnan(res).any():
+            status = Status.NAN
+        elif res_max < self.tol:
+            status = Status.CONVERGED
+        elif stagn and not recovering:
+            status = Status.BLOWUP
+        elif floored:
+            status = Status.FLOOR
+        else:
+            status = Status.RUNNING
+        return status, active
+
+
+def lobpcg_sep_rs(
+    h_func: Callable[[torch.Tensor], torch.Tensor],
+    p_func: Callable[[torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    nev: int,
+    *,
+    tol: float = TOL,
+    maxiter: int = MAXITER,
+    ortho_passes: int = 2,
+    refresh_every: int = 5,
+    floor_patience: int = 9,
+    rp_fused=None,
+    col_patience: int = 0,
+    lam_tol: float = 0.0,
+    lam_patience: int = 3,
+    lam_res_tol: float = 1e-3,
+    limit: Optional[int] = None,
+    monitor: Optional[Callable[[int, np.ndarray, torch.Tensor], bool]] = None,
+) -> SolveResult:
+    """Soft-locking LOBPCG for the lowest ``nev`` eigenpairs of H.
+
+    ``h_func``/``p_func`` map a block shaped like ``x0`` (m, ...) to H x and
+    to the preconditioned block.  The options mean what they mean in
+    ``pcx.solvers.lobpcg_rs.rs_solver_parts`` (see its docstring).
+
+    ``rp_fused``: optional ``(x, hx, lam) -> (w_raw, sumsq)`` on flat (m, D)
+    blocks, replacing the residual / column-norm / preconditioner chain by
+    one fused pass (kernel K1); ``p_func`` is then not called in the loop.
+
+    ``limit``: stop after this many iterations (status MAXITER) — the warm
+    start cap of KPointSolver.  ``monitor(it, res, lambdas)``: called after
+    each step with the iteration count, the host residuals and the device
+    Ritz values; returning True stops the solve (status MAXITER).
+    """
+    if lam_tol > 0.0 and lam_patience < 1:
+        raise ValueError("lam_patience must be >= 1 (the stillness counter "
+                         "starts at 0, so 0 would stop unconditionally)")
+    shape = x0.shape
+    m = shape[0]
+    cdtype = x0.dtype
+    rdtype = real_dtype(cdtype)
+    dev = x0.device
+    finfo = torch.finfo(rdtype)
+    tiny = float(finfo.tiny ** 0.5)
+    dim = int(np.prod(shape[1:]))
+    noise_floor = 30.0 * (dim ** 0.5) * float(finfo.eps)
+    rr_split = rr.split_for(rdtype)
+    stop = maxiter if limit is None else min(limit, maxiter)
+
+    def hf(a: torch.Tensor) -> torch.Tensor:
+        return h_func(a.reshape((-1,) + shape[1:])).reshape(a.shape[0], -1)
+
+    def unit_cols(a: torch.Tensor) -> torch.Tensor:
+        return rr.scale_cols(a, 1.0 / rr.colnorms(a).clamp(min=tiny))
+
+    def masked_rr(t: torch.Tensor, mask: torch.Tensor, sentinel: float):
+        """Hermitize T on the kept rows/columns and decouple the dead ones
+        at sentinel * (||T||_F + 1) on the diagonal."""
+        mask64 = mask.to(torch.float64)
+        t = rr.hermitize(t) * (mask64[:, None] * mask64[None, :])
+        dead = torch.linalg.norm(t) + 1.0
+        t = t + sentinel * dead * torch.diag(1.0 - mask64)
+        return rr.eigh_split(t, rr_split)
+
+    # ---- initialization: orthonormalize + Ritz-rotate the start ----------
+    ones_m = torch.ones((m,), dtype=rdtype, device=dev)
+    xf, _, keep0 = rr.masked_svqb_drop(unit_cols(x0.reshape(m, -1)), ones_m,
+                                       noise_floor, passes=1)
+    hxf = hf(xf)
+    # Rank-deficient starts: the dropped (zero) columns sort ABOVE the
+    # spectrum, never as phantom theta=0 below it.
+    theta0, v0 = masked_rr(rr.gram_f64(xf, hxf), keep0, +1.0)
+    c0 = v0.to(cdtype) * keep0[:, None]
+    x, hx = rr.mix(c0, xf), rr.mix(c0, hxf)
+    lambdas = theta0.to(rdtype)
+    p, hp = torch.zeros_like(x), torch.zeros_like(x)
+    arange_m = torch.arange(m, device=dev)
+    # valid-column mask of X in sorted position (zero columns trail)
+    x_ok = (arange_m < keep0.sum()).to(rdtype)
+
+    trk = _Tracker(m, nev, tol, maxiter, floor_patience,
+                   col_patience, lam_tol, lam_patience, lam_res_tol,
+                   noise_floor, _NP_REAL[rdtype])
+    it = 0
+    status = Status.RUNNING
+    while it < stop:
+        if refresh_every > 0 and it > 0 and it % refresh_every == 0:
+            hx, hp = hf(x), hf(p)
+        if rp_fused is None:
+            r = lambdas[:, None] * x - hx
+            res = rr.colnorms(r)
+        else:
+            w_raw, sumsq = rp_fused(x, hx, lambdas)
+            res = torch.sqrt(sumsq).to(rdtype)
+        host = torch.cat((res, lambdas)).cpu().numpy()   # the one sync
+        res_h, lam_h = host[:m], host[m:]
+        if it > 0 and np.isnan(lam_h).any():
+            status = Status.NAN        # the previous Rayleigh-Ritz failed
+            break
+        status, active_h = trk.update(it, res_h, lam_h)
+        if status != Status.RUNNING:
+            break
+
+        # ---- step: W = P R on the active columns, P, Rayleigh-Ritz --------
+        sel = torch.as_tensor(active_h, device=dev).to(rdtype)
+        acol = sel[:, None]
+        if rp_fused is None:
+            w = p_func((acol * r).reshape(shape)).reshape(m, -1)
+        else:
+            w = w_raw.reshape(m, -1)
+        w = unit_cols(acol * w)
+        w, _, w_ok = rr.masked_svqb_drop(w, sel, noise_floor, against=(x,),
+                                         passes=ortho_passes)
+        hw = hf(w)
+
+        p_act = sel * (1.0 if it > 0 else 0.0)
+        pc = p_act[:, None]
+        pn = rr.colnorms(pc * p)
+        inv_pn = (1.0 / pn.clamp(min=tiny))[:, None]
+        pf, hpf = inv_pn * (pc * p), inv_pn * (pc * hp)
+        pf, hpf, p_ok = rr.masked_svqb_drop(
+            pf, p_act, noise_floor, hblock=hpf, against=(x, w),
+            h_against=(hx, hw), passes=ortho_passes)
+
+        basis_mask = torch.cat((x_ok, w_ok, p_ok))
+        sf = torch.cat((x, w, pf))
+        hsf = torch.cat((hx, hw, hpf))
+        theta_all, v = masked_rr(rr.gram_f64(sf, hsf), basis_mask, -1.0)
+        c_all = v.to(cdtype) * basis_mask[:, None]
+        # The dead columns sort first: the window of m Ritz pairs starts
+        # after them (clamped like lax.dynamic_slice).
+        nb = sf.shape[0]
+        valid = basis_mask.sum()
+        start = (nb - valid).clamp(0, nb - m).long()
+        idx = start + arange_m
+        x_ok = (arange_m >= (m - valid).clamp(min=0)).to(rdtype)
+        c = c_all[:, idx]
+        lambdas = theta_all.to(rdtype)[idx]
+        p, hp = rr.mix(c[m:], sf[m:]), rr.mix(c[m:], hsf[m:])
+        x, hx = rr.mix(c, sf), rr.mix(c, hsf)
+        del sf, hsf, w, hw, pf, hpf
+        it += 1
+        if monitor is not None and it < stop and monitor(it, res_h, lambdas):
+            break
+
+    if status == Status.RUNNING:
+        # stopped by the limit or the monitor: a NaN from the last
+        # Rayleigh-Ritz still reports NAN, as the JAX step does
+        status = (Status.NAN if bool(torch.isnan(lambdas).any())
+                  else Status.MAXITER)
+    return SolveResult(lambdas=lambdas, x=x.reshape(shape), iterations=it,
+                       status=int(status), res_history=trk.res_his)

@@ -1,0 +1,331 @@
+"""The port's solver stack against the JAX package's on identical numpy
+state: the Rayleigh-Ritz algebra, the production LOBPCG through
+``KPointSolver.solve`` (complex128, and complex64 with the kernels' plain
+versions vs the Pallas kernels in interpret mode), the complex128 refine,
+``validate.recompute`` and the status codes."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pcx import boundary
+from pcx import validate as jval
+from pcx.bandstructure import KPointSolver as JaxSolver
+from pcx.config import ProblemConfig as JaxConfig
+from pcx.operators import rs
+from pcx.solvers import lobpcg as jlob
+from pcx.solvers import rayleigh_ritz as jrr
+from pcx_torch import interop
+from pcx_torch import validate as tval
+from pcx_torch.bandstructure import KPointSolver, eigen_1p
+from pcx_torch.config import ProblemConfig
+from pcx_torch.operators import maxwell as tmax
+from pcx_torch.operators import symbols as tsym
+from pcx_torch.solvers import lobpcg as tlob
+from pcx_torch.solvers import rayleigh_ritz as trr
+
+# Dense algebra in complex128 / f64 on both sides, other summation order.
+ALG_TOL = 1e-12
+
+
+def _pair(a):
+    a = np.asarray(a)
+    return (jnp.asarray(a.real), jnp.asarray(a.imag))
+
+
+def _cplx(p):
+    return np.asarray(p[0]) + 1j * np.asarray(p[1])
+
+
+def _blk(rng, *shape):
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+def _projector(q, mask):
+    q = q[np.asarray(mask) > 0.5]
+    return q.T @ q.conj()
+
+
+def test_gram_colnorms_mix_match_rayleigh_ritz(rng):
+    x, y = _blk(rng, 6, 3000), _blk(rng, 4, 3000)
+    c = _blk(rng, 6, 5)
+    g = trr.gram_f64(torch.as_tensor(x), torch.as_tensor(y), chunk=700)
+    want = _cplx(jrr.gram_f64_p(_pair(x), _pair(y), chunk=700))
+    np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=ALG_TOL *
+                               np.abs(want).max())
+    np.testing.assert_allclose(trr.gram(torch.as_tensor(x),
+                                        torch.as_tensor(y)).numpy(), want,
+                               rtol=0, atol=ALG_TOL * np.abs(want).max())
+    np.testing.assert_allclose(trr.colnorms(torch.as_tensor(x)).numpy(),
+                               np.asarray(jrr.colnorms_p(_pair(x))),
+                               rtol=ALG_TOL)
+    mixed = _cplx(jrr.mix_pair(_pair(c), _pair(x)))
+    np.testing.assert_allclose(
+        trr.mix(torch.as_tensor(c), torch.as_tensor(x)).numpy(), mixed,
+        rtol=0, atol=ALG_TOL * np.abs(mixed).max())
+
+
+def test_gram_f64_complex64_partials_sum_in_complex128(rng):
+    x = _blk(rng, 3, 4096).astype(np.complex64)
+    g = trr.gram_f64(torch.as_tensor(x), torch.as_tensor(x))
+    assert g.dtype == torch.complex128
+    want = _cplx(jrr.gram_f64_p((jnp.asarray(x.real), jnp.asarray(x.imag)),
+                                (jnp.asarray(x.real), jnp.asarray(x.imag))))
+    np.testing.assert_allclose(g.numpy(), want, rtol=2e-6)
+
+
+@pytest.mark.parametrize("with_against", [False, True])
+def test_masked_svqb_drop_matches_rayleigh_ritz(rng, with_against):
+    """A rank-deficient block (two columns are combinations of others):
+    the same directions are dropped, and the kept rows span the same
+    space, orthonormal."""
+    d = 400
+    b = _blk(rng, 6, d)
+    b[4] = b[0] + 2j * b[1]
+    b[5] = 0.5 * b[2] - b[3]
+    hb = _blk(rng, 6, d)
+    mask = np.ones(6)
+    kw, tkw = {}, {}
+    if with_against:
+        base = np.linalg.qr(_blk(rng, d, 2))[0].T.copy()
+        hbase = _blk(rng, 2, d)
+        kw = dict(against=(_pair(base),), h_against=(_pair(hbase),))
+        tkw = dict(against=(torch.as_tensor(base),),
+                   h_against=(torch.as_tensor(hbase),))
+    q, hq, keep = jrr.masked_svqb_drop_p(_pair(b), jnp.asarray(mask), 1e-6,
+                                         hblock=_pair(hb), passes=2, **kw)
+    tq, thq, tkeep = trr.masked_svqb_drop(
+        torch.as_tensor(b), torch.as_tensor(mask), 1e-6,
+        hblock=torch.as_tensor(hb), passes=2, **tkw)
+    np.testing.assert_array_equal(tkeep.numpy(), np.asarray(keep))
+    assert int(tkeep.sum()) == 4
+    q, tq = _cplx(q), tq.numpy()
+    np.testing.assert_allclose(_projector(tq, tkeep), _projector(q, keep),
+                               atol=ALG_TOL * 10)
+    kept = tq[tkeep.numpy() > 0.5]
+    np.testing.assert_allclose(kept.conj() @ kept.T, np.eye(4), atol=1e-12)
+    # hblock follows the same row combinations: M = conj(Q) HQ^T over the
+    # kept rows changes by a unitary similarity between the two gauges, so
+    # its trace and Frobenius norm agree.
+    def invariants(qq, hq, kk):
+        sel = np.asarray(kk) > 0.5
+        m = qq[sel].conj() @ np.asarray(hq)[sel].T
+        return np.trace(m), np.linalg.norm(m)
+
+    got, want = invariants(tq, thq.numpy(), tkeep), invariants(q, _cplx(hq),
+                                                               keep)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-10)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-10)
+
+
+def test_eigh_split_and_pencil_match_embeddings(rng):
+    a = _blk(rng, 12, 12)
+    t = a + a.conj().T
+    w_j, _, _ = jrr.eigh_f64_embedding(jnp.asarray(t.real),
+                                       jnp.asarray(t.imag), split=1e-10)
+    w_t, v_t = trr.eigh_split(torch.as_tensor(t), 1e-10)
+    scale = np.abs(t).max()
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j),
+                               atol=ALG_TOL * scale)
+    np.testing.assert_allclose(
+        v_t.numpy().conj().T @ v_t.numpy(), np.eye(12), atol=1e-12)
+    g0 = _blk(rng, 12, 8)
+    g = g0 @ g0.conj().T + 1e-3 * np.eye(12)
+    th_j, _ = rs.pencil_f64_embedding(_pair(t), _pair(g))
+    th_t, c_t = trr.pencil_eigh(torch.as_tensor(t), torch.as_tensor(g))
+    np.testing.assert_allclose(th_t.numpy(), np.asarray(th_j),
+                               rtol=1e-9, atol=1e-9 * np.abs(th_j).max())
+    c = c_t.numpy()
+    np.testing.assert_allclose(c.conj().T @ g @ c, np.eye(12), atol=1e-9)
+
+
+def _pair_solvers(lattice, n, nev, jax_dtype, torch_dtype, jax_kw=None,
+                  **kw):
+    cfg = JaxConfig(n=n, lattice=lattice, nev=nev)
+    js = JaxSolver(cfg, dtype=jax_dtype, solver_impl="rs",
+                   real_boundary=True, refine=False, **(jax_kw or {}), **kw)
+    f = js._f64
+    # The JAX one-shot CPU program applies no warm cap and no doom check.
+    ts = KPointSolver.from_arrays(
+        ProblemConfig(n=n, lattice=lattice, nev=nev),
+        scale=np.asarray(js.diel.params[0]), d1=f["d1"], d0=f["d0"],
+        ct=f["ct"], device="cpu", dtype=torch_dtype, warm_maxiter=0,
+        doom_check=False, **kw)
+    return js, ts
+
+
+def _x0(ts, alpha, seed=0):
+    """The plane-wave start with numpy jitter, the same for both."""
+    n = ts.cfg.n
+    m = ts.block_width(alpha)
+    d_a = tsym.build_curl(ts.parts, alpha).numpy()
+    idx, amps = tmax.plane_wave_cols(d_a, m)
+    rng = np.random.default_rng(seed)
+    x0 = np.zeros((m, 3, n ** 3), complex)
+    x0[np.arange(m), :, idx] = amps
+    shape = (m, 3, n, n, n)
+    return x0.reshape(shape) + 1e-2 * (rng.random(shape)
+                                       + 1j * rng.random(shape))
+
+
+@pytest.mark.parametrize("lattice", ["sc_curv", "fcc"])
+def test_complex128_solve_matches_pcx(lattice):
+    alpha = np.array([np.pi, 0.2, 0.0])
+    js, ts = _pair_solvers(lattice, 8, 4, jnp.complex128, torch.complex128)
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0))
+    rt = ts.solve(alpha, x0=interop.block(x0, torch.complex128, "cpu"))
+    assert rt.status == rj.status == tlob.Status.CONVERGED
+    assert abs(rt.iterations - rj.iterations) <= 2
+    # complex128 on both sides; the small eigenproblems differ (complex
+    # eigh vs real embedding with repairs), and the port validates through
+    # its refine, pcx (refine=False) through Rayleigh quotients of the same
+    # Ritz vectors: 1e-8 on frequencies
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=1e-8)
+    assert not rt.report.spurious
+
+
+def test_complex64_solve_plain_kernels_match_pallas_interpret():
+    alpha = np.array([np.pi, 0.0, 0.0])
+    kw = dict(tol=1e-5, maxiter=300)
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex64, torch.complex64,
+                           jax_kw={"solver_opts": {"rp_fuse": "pallas",
+                                                   "dft_fuse": "pallas"}},
+                           **kw)
+    assert ts.solver_opts == {"ortho_passes": 2, "refresh_every": 8,
+                              "floor_patience": 6}
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0.astype(np.complex64)))
+    rt = ts.solve(alpha, x0=torch.as_tensor(x0))
+    assert rt.status in (1, 5) and rj.status in (1, 5)
+    # complex64 iterates: frequencies to 5e-5 (tests/test_pallas.py:160)
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=5e-5)
+
+
+def test_refine_matches_pcx_f64_refine():
+    """The complex128 refine (torch.fft, complex eigh pencil) reproduces the
+    JAX emulated-f64 refine of the same complex64 block."""
+    alpha = np.array([np.pi, 0.1, 0.0])
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex64, torch.complex64,
+                           tol=1e-5)
+    js.refine = True
+    r = ts.solve(alpha, validate_result=False)
+    x = r.x.numpy()
+    rep_j, theta_j, _ = js._refine_report(alpha, boundary.encode(x))
+    theta_t, lam_re_t, res_t = ts.refine_stats(alpha, r.x)
+    np.testing.assert_allclose(theta_t, np.asarray(theta_j), rtol=1e-10)
+    rep_t = ts.validate_solution(alpha, r)
+    np.testing.assert_allclose(rep_t.omega_re, rep_j.omega_re, atol=1e-10)
+    np.testing.assert_allclose(rep_t.omega_pnt, rep_j.omega_pnt, atol=1e-10)
+    np.testing.assert_allclose(rep_t.residuals, rep_j.residuals, rtol=1e-6,
+                               atol=1e-10)
+    assert not rep_t.spurious and not rep_j.spurious
+
+
+@pytest.mark.parametrize("case", ["clean", "spurious", "nan", "gamma"])
+def test_recompute_matches_pcx(case):
+    lam = np.array([2.8, 3.1, 4.9, 5.0])
+    lam_re = lam - np.array([1e-9, 2e-9, 0.0, 1e-9])
+    res = np.array([1e-5, 2e-5, 3e-5, 4e-5])
+    shift = 0.0
+    if case == "spurious":
+        lam_re[2] += 0.5
+    elif case == "nan":
+        lam_re[1] = np.nan
+        lam[3] = np.nan
+    elif case == "gamma":
+        shift = 1.0 / np.pi
+        lam = lam + shift
+    kw = dict(shift=shift, scal=1.0, raise_on_spurious=False)
+    want = jval.recompute(lam, stats=(lam_re, res), **kw)
+    got = tval.recompute(lam, stats=(lam_re, res), **kw)
+    np.testing.assert_array_equal(got.omega_pnt, want.omega_pnt)
+    np.testing.assert_array_equal(got.omega_re, want.omega_re)
+    np.testing.assert_array_equal(got.residuals, want.residuals)
+    assert got.spurious == want.spurious == (case in ("spurious", "nan"))
+    assert got.table() == want.table()
+
+
+def test_status_codes_and_spurious_gate_match_pcx():
+    """Later PRs must not drift from the JAX package's status values, result
+    fields or the 1e-3 spurious gate (non-finite counts as spurious,
+    pcx/validate.py:90-92)."""
+    assert ({s.name: int(s) for s in tlob.Status}
+            == {s.name: int(s) for s in jlob.Status})
+    assert tlob.SolveResult._fields == jlob.SolveResult._fields
+    lam = np.array([(2 * np.pi * 0.4) ** 2])
+    for d_omega, spurious in ((0.9e-3, False), (1.1e-3, True)):
+        lam_re = np.array([(2 * np.pi * (0.4 + d_omega)) ** 2])
+        for mod in (tval, jval):
+            rep = mod.recompute(lam, stats=(lam_re, [0.0]),
+                                raise_on_spurious=False)
+            assert rep.spurious is spurious
+    for bad in (np.inf, np.nan):
+        assert tval.recompute([bad], stats=([1.0], [0.0]),
+                              raise_on_spurious=False).spurious
+    with pytest.raises(tval.SpuriousModeError):
+        tval.recompute(lam, stats=(lam * 1.1, [0.0]))
+    assert issubclass(tval.SpuriousModeError, RuntimeError)
+
+
+def test_eigen_1p_converges_without_spurious_modes():
+    res = eigen_1p(8, "sc_curv", np.array([np.pi, 0, 0]), device="cpu",
+                   nev=4, verbose=False)
+    assert res.status == tlob.Status.CONVERGED
+    assert not res.report.spurious
+    np.testing.assert_allclose(res.omega, res.omega_re, atol=1e-8)
+    assert res.x.shape == (6, 3, 8, 8, 8)
+
+
+def test_warm_maxiter_caps_warm_solves_only():
+    cfg = ProblemConfig(n=8, lattice="sc_flat1", nev=4)
+    solver = KPointSolver(cfg, device="cpu", dtype=torch.complex128,
+                          warm_maxiter=8)
+    alpha = np.array([np.pi, 0, 0])
+    cold = solver.solve(alpha, seed=1, validate_result=False)
+    assert cold.iterations > 8
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.randn(cold.x.shape, generator=gen, dtype=torch.complex128)
+    warm = solver.solve(alpha, x0=x0, validate_result=False)
+    assert warm.iterations <= 8 and warm.status == tlob.Status.MAXITER
+
+
+def test_solver_rejects_unknown_options_and_dielectrics():
+    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
+    with pytest.raises(ValueError, match="rr_gram"):
+        KPointSolver(cfg, device="cpu", dtype=torch.complex128,
+                     solver_opts={"rr_gram": "pallas"})
+    with pytest.raises(NotImplementedError, match="chiral"):
+        KPointSolver(ProblemConfig(n=8, diel_type="pseudochiral_trivial"),
+                     device="cpu", dtype=torch.complex128)
+
+
+@pytest.mark.parametrize("opts", [{"col_patience": 3, "floor_patience": 3},
+                                  {"lam_tol": 1e-9},
+                                  {"refresh_every": 3, "ortho_passes": 1}])
+def test_solver_levers_preserve_frequencies(opts):
+    """The termination / cost levers change when the solve stops, not what
+    it converges to (tests/test_bandstructure.py::
+    test_solver_lever_opts_preserve_frequencies)."""
+    cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
+    alpha = np.array([np.pi, 0.3, 0.0])
+    kw = dict(device="cpu", dtype=torch.complex128)
+    base = KPointSolver(cfg, **kw).solve(alpha, seed=3)
+    r = KPointSolver(cfg, solver_opts=dict(opts), **kw).solve(alpha, seed=3)
+    assert r.status in (1, 5)
+    np.testing.assert_allclose(r.omega_re, base.omega_re, atol=5e-6)
+
+
+def test_interop_dft_and_block_match_pcx():
+    from pcx.operators import dft as jdft
+    from pcx_torch.operators.dft import dft_mats
+    w = jdft.dft_mats(10, np.complex128)
+    got = interop.dft((np.asarray(w.fwd.real), np.asarray(w.fwd.imag)), w.inv,
+                      torch.complex64, "cpu")
+    want = dft_mats(10, torch.complex64, "cpu")
+    assert torch.equal(got.fwd, want.fwd) and torch.equal(got.inv, want.inv)
+    x = np.arange(6.0).reshape(2, 3) + 1j
+    assert torch.equal(interop.block((x.real, x.imag), torch.complex128, "cpu"),
+                       torch.as_tensor(x))
