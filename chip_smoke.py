@@ -5,22 +5,37 @@
 Phases, in order; each prints one line with its numbers, and the first
 failure ends the run with a non-zero exit:
 
-1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the CUDA kernels (nvcc, sm_90a) from the sources.
+1. device  — require CUDA; print the card's name and power limit, and the
+             peak rates the kernels' bounds use.
+2. build   — compile the CUDA kernels (nvcc, sm_90a, one process per
+             source, all at once) from the sources.
 3. k1      — K1 resid_precond vs its plain version at m=16, N=120.
 4. k2      — K2 axis_dft vs the einsum at B=48, N=120, one pass and a full
              dft3 forward and back (against torch.fft.fftn).
-5. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
+5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048;
+             timed beside the stacked ``rr.gram_f64`` (the rr_gram="xla"
+             route), with and without the torch.cat that builds its input.
+6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
-6. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
+7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
              point of ``bench.py --sweep 0``, gated against the committed
              complex64 library row (output_c64/chiral/bandgap_sc_curv.json).
-7. warm    — fcc chiral N=120: a cold solve at k_path("fcc")[9], then warm
+8. warm    — fcc chiral N=120: a cold solve at k_path("fcc")[9], then warm
              solves at 10 and 11 (the sweep protocol of bench.py), each
              gated like the single point against bandgap_fcc.json.
+9. sweep   — ``bandgap`` fcc N=120 complex64 with rr_gram="pallas" over
+             k_path indices 8-12 (one cold point, four warm), every row
+             within 3.5e-3 of bandgap_fcc.json; then row 10 marked failed
+             and swept again, which must go through the warm feeder,
+             restore it and leave rows 9 and 11 byte for byte.
 
-The kernel launch counts are reset just before phase 6 and read after
-phases 6 and 7: both kernels must have launched in the solves.
+The kernel launch counts are reset just before phase 7 and read after
+phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
+route), and reset again just before phase 9 and read after it (K1, K2 and
+K3 must all have launched).  The ``{"kernels": [...]}`` line gives, per
+kernel, the sweep's launches, the kernel's time beside its plain
+version's, its bound on this card and the time of the PyTorch library
+call that computes the same function (null where there is none).
 
 The last line of standard output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -29,11 +44,14 @@ There is no CPU path: without CUDA the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,6 +62,8 @@ N = 120
 NEV = 10
 SPURIOUS_TOL = 1e-3      # |omega - omega_re| gate (pcx validate.recompute)
 GOLDEN_TOL = 3.5e-3      # complex64 golden scale (README, ROADMAP R3)
+HBM_BYTES_S = 3.35e12    # H100 SXM device-memory rate (NVIDIA data sheet)
+SWEEP_INDICES = [8, 9, 10, 11, 12]
 
 FAIL = 1
 
@@ -72,19 +92,41 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
-def phase_device() -> str:
+def smi(query: str) -> str:
+    """nvidia-smi's first line for ``query``, '' if it fails."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
+
+
+def bound(ops: float, nbytes: float, peak_flops: float) -> dict:
+    """The least time the card could take for work of ``ops`` f32
+    operations on ``nbytes`` read once and written once: the larger of
+    bytes over the memory rate and operations over the IEEE f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak_flops
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_device() -> float:
+    """Print the card and return its IEEE f32 peak in FLOP/s: SMs x 128
+    f32 lanes x 2 (an FMA) x the maximum SM clock."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke test needs a "
              "CUDA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
-    print(card, flush=True)
+    print(smi("name,power.limit"), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float((smi("clocks.max.sm") or "nan").split()[0])  # "1980 MHz"
+    peak = sms * 128 * 2 * clock_mhz * 1e6
     print(f"phase device: {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__},"
-          f" cuda {torch.version.cuda}", flush=True)
-    return card
+          f" cuda {torch.version.cuda}; {sms} SMs at {clock_mhz:.0f} MHz max:"
+          f" IEEE f32 peak {peak / 1e12:.2f} TFLOP/s; memory "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s (data sheet)", flush=True)
+    if not peak > 0:
+        fail("could not read the SM clock from nvidia-smi")
+    return peak
 
 
 def phase_build() -> None:
@@ -99,7 +141,7 @@ def phase_build() -> None:
         print(f"  ptxas: {ln}", flush=True)
 
 
-def phase_k1(gen, dev) -> dict:
+def phase_k1(gen, dev, peak: float) -> dict:
     from pcx_torch.kernels.resid_precond import (resid_precond,
                                                  resid_precond_plain)
     m, n = 16, 120
@@ -123,19 +165,25 @@ def phase_k1(gen, dev) -> dict:
     ms = cuda_ms(lambda: resid_precond(*args))
     plain_ms = cuda_ms(lambda: resid_precond_plain(*args))
     ss_rel = float(((ss_k - ss_p).abs() / ss_p.abs()).max())
+    # per (column, index): residual and its squares 24 flop, the Hermitian
+    # 3x3 multiply 54; bytes: x, hx, the symbols and lam in, w, sumsq out
+    b = bound(78.0 * m * d, sum(t.numel() * t.element_size()
+                                for t in args + (w_k, ss_k)), peak)
     print(f"phase k1: m={m} N={n} max|dw|={err_w:.3e} (max|w| {w_scale:.3e})"
           f" max rel dsumsq={ss_rel:.3e} kernel {ms:.3f} ms plain "
-          f"{plain_ms:.3f} ms", flush=True)
+          f"{plain_ms:.3f} ms bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}); no library call", flush=True)
     if not (ok_w and ok_ss):
         fail("K1 disagrees with its plain version (w rtol 1e-5 atol "
              "1e-6*max|w|, sumsq rtol 1e-5)")
     return {"name": "resid_precond", "route": "cuda",
             "source": "pcx_torch/kernels/csrc/resid_precond.cu",
             "replaces": "pcx/operators/pallas_kernels.py:130",
-            "max_abs_err": err_w, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err_w, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
-def phase_k2(gen, dev) -> dict:
+def phase_k2(gen, dev, peak: float) -> dict:
     from pcx_torch.kernels.axis_dft import axis_dft, axis_dft_plain
     from pcx_torch.operators.dft import dft3, dft_mats
     b, n = 48, 120
@@ -159,13 +207,19 @@ def phase_k2(gen, dev) -> dict:
     del back, f_k
     ms = cuda_ms(lambda: axis_dft(x, mats.fwd))
     plain_ms = cuda_ms(lambda: axis_dft_plain(x, mats.fwd))
+    # one PyTorch call computing the same pass: a cuBLAS GEMM on the
+    # permuted view, (B, J, K, A) @ (A, C) -> (B, J, K, C)
+    lib_ms = cuda_ms(lambda: torch.matmul(x.permute(0, 2, 3, 1), mats.fwd))
     dft3_ms = cuda_ms(lambda: dft3(x, mats.fwd))
     fft_ms = cuda_ms(lambda: torch.fft.fftn(x, dim=(-3, -2, -1)))
+    # B N^3 outputs of N complex multiply-adds (8 flop); x, w in, y out
+    bd = bound(8.0 * b * n ** 4, 8.0 * (2 * b * n ** 3 + n * n), peak)
     print(f"phase k2: B={b} N={n} pass max|dy|/scale={err / scale:.3e} "
           f"dft3 fwd vs fftn {err_f / scale_f:.3e} fwd+inv vs x "
           f"{err_b / scale_b:.3e}; one pass: kernel {ms:.3f} ms einsum "
-          f"{plain_ms:.3f} ms; 3-D: dft3 (3 kernel passes) {dft3_ms:.3f} ms "
-          f"cuFFT fftn {fft_ms:.3f} ms", flush=True)
+          f"{plain_ms:.3f} ms matmul {lib_ms:.3f} ms bound "
+          f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); 3-D: dft3 (3 kernel "
+          f"passes) {dft3_ms:.3f} ms cuFFT fftn {fft_ms:.3f} ms", flush=True)
     if not (err <= 5e-6 * scale and err_f <= 5e-6 * scale_f
             and err_b <= 5e-6 * scale_b):
         fail("K2 disagrees with its plain version / torch.fft (atol "
@@ -173,8 +227,46 @@ def phase_k2(gen, dev) -> dict:
     return {"name": "axis_dft", "route": "cuda",
             "source": "pcx_torch/kernels/csrc/axis_dft.cu",
             "replaces": "pcx/operators/pallas_kernels.py:288",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "dft3_ms": dft3_ms, "cufft_fftn_ms": fft_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": lib_ms, "dft3_ms": dft3_ms,
+            "cufft_fftn_ms": fft_ms}
+
+
+def phase_k3(gen, dev, peak: float) -> dict:
+    from pcx_torch.kernels.gram9 import gram9, gram9_plain
+    from pcx_torch.solvers import rayleigh_ritz as rr
+    m, d = 16, 3 * N ** 3
+    blocks = [torch.randn((m, d), generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(6)]
+    t_k = gram9(*blocks)
+    t_p = gram9_plain(*blocks)
+    torch.cuda.synchronize()
+    err = max_err(t_k, t_p)
+    scale = float(t_p.abs().max())
+    ms = cuda_ms(lambda: gram9(*blocks))
+    plain_ms = cuda_ms(lambda: gram9_plain(*blocks))
+    cat_ms = cuda_ms(lambda: rr.gram_f64(torch.cat(blocks[:3]),
+                                         torch.cat(blocks[3:])))
+    s, hs = torch.cat(blocks[:3]), torch.cat(blocks[3:])
+    err_lib = max_err(rr.gram_f64(s, hs), t_p)
+    lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
+    del s, hs
+    # (3m)^2 D complex conjugate products (8 flop); six blocks in, T out
+    b = bound(8.0 * (3 * m) ** 2 * d, 8.0 * 6 * m * d + 16.0 * (3 * m) ** 2,
+              peak)
+    print(f"phase k3: m={m} D={d} chunk 2048 max|dT|/max|T|="
+          f"{err / scale:.3e} (stacked gram_f64 vs plain "
+          f"{err_lib / scale:.3e}); kernel {ms:.3f} ms plain {plain_ms:.3f} "
+          f"ms library gram_f64 on the stacked blocks {lib_ms:.3f} ms, with "
+          f"the two torch.cat {cat_ms:.3f} ms; bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']})", flush=True)
+    if not err <= 1e-5 * scale:
+        fail("K3 disagrees with its plain version (atol 1e-5*max|T|)")
+    return {"name": "gram9", "route": "cuda",
+            "source": "pcx_torch/kernels/csrc/gram9.cu",
+            "replaces": "pcx/operators/pallas_kernels.py:27",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": lib_ms, "library_with_cat_ms": cat_ms}
 
 
 def phase_operator(gen, dev, n: int = N) -> None:
@@ -281,32 +373,116 @@ def phase_warm(dev, n: int = N, golden: bool = True) -> None:
         x_prev = res.x
 
 
+def phase_sweep(dev, n: int = N, golden: bool = True) -> None:
+    """The sweep entry point with K3's route: bandgap over SWEEP_INDICES,
+    then the failed-row retry of index 10 through the warm feeder."""
+    from pcx_torch.bandstructure import bandgap
+    from pcx_torch.io import BandLibrary
+    from pcx_torch.lattices import k_path
+    from pcx_torch.metrics import load_jsonl
+    from pcx_torch.solvers.lobpcg import Status
+    n_k = k_path("fcc").shape[0]
+    with tempfile.TemporaryDirectory(prefix="pcx_sweep_") as out:
+        metrics = os.path.join(out, "metrics.jsonl")
+        kw = dict(n=n, lattice="fcc", nev=NEV, dtype=torch.complex64,
+                  device=dev, output_dir=out, metrics_path=metrics,
+                  solver_opts={"rr_gram": "pallas"})
+        path = os.path.join(out, "chiral", "bandgap_fcc.json")
+        print(f"phase sweep: bandgap fcc N={n} complex64 rr_gram='pallas' "
+              f"indices {SWEEP_INDICES}", flush=True)
+        t0 = time.time()
+        err = bandgap(indices=SWEEP_INDICES, verbose=False, **kw)
+        wall = time.time() - t0
+        recs = load_jsonl(metrics)
+        for i, rec in zip(SWEEP_INDICES, recs):
+            print(f"  k={i}: status {Status(rec['status']).name} iters "
+                  f"{rec['iterations']} wall {rec['wall_s']:.3f} s "
+                  f"({1e3 * rec['wall_s'] / max(rec['iterations'], 1):.1f} "
+                  f"ms/iter)", flush=True)
+        print(f"  sweep of {len(SWEEP_INDICES)} points: {wall:.3f} s, "
+              f"{wall / len(SWEEP_INDICES):.3f} s/k-point", flush=True)
+        if err or len(recs) != len(SWEEP_INDICES):
+            fail(f"sweep: failed indices {err}, {len(recs)} records")
+        lib = BandLibrary(path, "fcc", n, n_k, NEV)
+        for i in SWEEP_INDICES:
+            gold = golden_row("fcc", n, i) if golden else None
+            dev_i = (float(np.abs(np.array(lib.frequencies[i]) - gold).max())
+                     if golden else float("nan"))
+            print(f"  k={i}: max|omega - golden| {dev_i:.3e}", flush=True)
+            if golden and not dev_i <= GOLDEN_TOL:
+                fail(f"sweep row {i}: {dev_i:.3e} from the golden row")
+
+        # The failed-row retry: mark row 10 failed and sweep it alone.
+        before = {i: (list(lib.iterations[i]), list(lib.frequencies[i]))
+                  for i in (9, 11)}
+        lib.record(10, -1, -1, None)
+        log = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(log):
+            err = bandgap(indices=[10], verbose=True, **kw)
+        print(f"  retry of row 10: {time.time() - t0:.3f} s", flush=True)
+        for line in log.getvalue().splitlines():
+            print(f"    {line}", flush=True)
+        lib = BandLibrary(path, "fcc", n, n_k, NEV)
+        if err or lib.failed_indices():
+            fail(f"retry of row 10: failed indices {err}")
+        if "warm-feeder solve of computed neighbor k=11" not in log.getvalue():
+            fail("retry of row 10 did not go through the warm feeder")
+        after = {i: (list(lib.iterations[i]), list(lib.frequencies[i]))
+                 for i in (9, 11)}
+        if after != before:
+            fail("the retry of row 10 changed rows 9 or 11")
+        if golden:
+            dev10 = float(np.abs(np.array(lib.frequencies[10])
+                                 - golden_row("fcc", n, 10)).max())
+            print(f"  k=10 restored: max|omega - golden| {dev10:.3e}; rows "
+                  f"9 and 11 unchanged", flush=True)
+            if not dev10 <= GOLDEN_TOL:
+                fail(f"restored row 10: {dev10:.3e} from the golden row")
+
+
 def main() -> None:
-    phase_device()
+    t_start = time.time()
+    peak = phase_device()
     import pcx_torch  # noqa: F401  (TF32 off, highest f32 matmul precision)
     phase_build()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    kernels = [phase_k1(gen, dev), phase_k2(gen, dev)]
+    kernels = [phase_k1(gen, dev, peak), phase_k2(gen, dev, peak),
+               phase_k3(gen, dev, peak)]
     phase_operator(gen, dev)
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)
     kmod.reset_launches()
     phase_single(dev)
     counts = kmod.launches()
-    if not all(counts.values()):
-        fail(f"a kernel of the path never launched in the single point: "
-             f"{counts}")
+    if not (counts["resid_precond"] and counts["axis_dft"]):
+        fail(f"K1 or K2 never launched in the single point: {counts}")
     phase_warm(dev)
     counts = kmod.launches()
-    print(f"phase launches: {counts} in the solves of phases 6-7; peak "
-          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
-          f" GiB", flush=True)
+    print(f"phase launches: {counts} in the solves of phases 7-8 "
+          f"(rr_gram='xla'); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    if not (counts["resid_precond"] and counts["axis_dft"]):
+        fail(f"K1 or K2 never launched in the solves: {counts}")
+    for rec in kernels:
+        rec["launches_solves"] = counts[rec["name"]]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kmod.reset_launches()
+    phase_sweep(dev)
+    counts = kmod.launches()
+    print(f"phase launches: {counts} in the sweep of phase 9 "
+          f"(rr_gram='pallas'); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
     for rec in kernels:
         rec["launches"] = counts[rec["name"]]
     if not all(rec["launches"] > 0 for rec in kernels):
-        fail(f"a kernel of the path never launched in the solves: {counts}")
+        fail(f"a kernel of the path never launched in the sweep: {counts}")
+    print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

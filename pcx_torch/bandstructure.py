@@ -1,20 +1,27 @@
-"""Single-k-point solve: ``KPointSolver`` and ``eigen_1p``.
+"""The single-k-point solve (``KPointSolver``, ``eigen_1p``) and the band
+sweep (``bandgap``).
 
 Port of the main-path subset of ``pcx/bandstructure.py``: the complex64
 production defaults, the plane-wave cold start and warm-start width fit,
 device-built symbols, the warm-start iteration cap and doom check, the
-complex128 Rayleigh-Ritz refine (``_refine_jit``) and the 1e-3
-spurious-mode gate (reference: eigen_1p, numerical_experiments.py:209-247).
+complex128 Rayleigh-Ritz refine (``_refine_jit``), the 1e-3 spurious-mode
+gate (reference: eigen_1p, numerical_experiments.py:209-247), and the
+checkpointed, resumable, warm-started sweep over a Brillouin-zone path
+(reference: bandgap, numerical_experiments.py:313-496).
 
 On a complex64 solve the operator's DFT passes run kernel K2 and the
-residual/preconditioner pass runs kernel K1; on CPU tensors both wrappers
-take their plain PyTorch versions.  The refine runs in complex128 with
+residual/preconditioner pass runs kernel K1; with
+``solver_opts={"rr_gram": "pallas"}`` the Rayleigh-Ritz Gram runs kernel K3
+(any dtype).  On CPU tensors the wrappers take their plain PyTorch
+versions.  The refine runs in complex128 with
 torch.fft, as the JAX refine runs its f64 pair operator with XLA products.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import NamedTuple, Optional
 
@@ -22,8 +29,9 @@ import numpy as np
 import torch
 
 from pcx_torch import interop, lattices, validate
-from pcx_torch.config import (MAXITER, NEV, TOL, TYPE_CHIRAL, ProblemConfig,
-                              block_width, set_relaxation)
+from pcx_torch.config import (GAP, MAXITER, NEV, TOL, TYPE_CHIRAL,
+                              ProblemConfig, block_width, set_relaxation)
+from pcx_torch.io import BandLibrary
 from pcx_torch.kernels.resid_precond import resid_precond
 from pcx_torch.operators import maxwell
 from pcx_torch.operators import symbols as sym
@@ -33,10 +41,16 @@ from pcx_torch.operators.dielectric import DielectricOp, chiral_op
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.lobpcg import Status
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
-from pcx_torch.utils import dots, norms, real_dtype, sqrt_robust
+from pcx_torch.metrics import RunLogger
+from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, norms,
+                             real_dtype, sqrt_robust)
 
 SOLVER_OPTS = ("ortho_passes", "refresh_every", "floor_patience",
-               "col_patience", "lam_tol", "lam_patience", "lam_res_tol")
+               "col_patience", "lam_tol", "lam_patience", "lam_res_tol",
+               "rr_gram")
+# Keys of solver_opts that KPointSolver itself takes and pops before the
+# rest reach the solver (pcx/bandstructure.py:238, 255-257).
+SOLVE_OPTS = ("warm_maxiter", "doom_check", "doom_tol")
 
 # Doom-check marks of a warm solve: the first at 24 iterations, then every
 # 40 (the JAX segmented solve's boundaries, bandstructure.py:1469-1503).
@@ -74,10 +88,15 @@ class KPointSolver:
 
     ``device`` and ``dtype`` are explicit: complex64 is the GPU production
     iterate (kernels K1 and K2), complex128 the CPU parity iterate.  Every
-    validation runs the complex128 Rayleigh-Ritz refine.  ``warm_maxiter``
-    caps warm-started solves and ``doom_check`` bails a warm solve whose
-    frequency-error bound stalls above ``lam_res_tol`` (see pcx
-    KPointSolver.__init__ for the measured rationale of both).
+    validation runs the complex128 Rayleigh-Ritz refine.
+
+    ``solver_opts`` is the dict the JAX package's KPointSolver takes: the
+    solver's options (``SOLVER_OPTS``; ``rr_gram="pallas"`` forms the
+    Rayleigh-Ritz Gram with kernel K3) and three keys popped here, as
+    there: ``warm_maxiter`` (default 150) caps warm-started solves,
+    ``doom_check`` (default True) bails a warm solve whose frequency-error
+    bound stalls above ``doom_tol`` (default ``lam_res_tol``, else 1e-3);
+    see pcx KPointSolver.__init__ for the measured rationale of both.
     ``diel``/``parts`` replace the dielectric and the 1-D symbol parts built
     from ``cfg`` (see ``from_arrays``).
     """
@@ -85,7 +104,6 @@ class KPointSolver:
     def __init__(self, cfg: ProblemConfig, *, device, dtype: torch.dtype,
                  tol: float = TOL, maxiter: int = MAXITER,
                  solver_opts: Optional[dict] = None,
-                 warm_maxiter: int = 150, doom_check: bool = True,
                  diel: Optional[DielectricOp] = None,
                  parts: Optional[sym.SymbolParts] = None):
         if cfg.diel_type != TYPE_CHIRAL:
@@ -102,10 +120,14 @@ class KPointSolver:
         self.tol = tol
         self.maxiter = maxiter
         opts = dict(solver_opts or {})
+        self.warm_maxiter = int(opts.pop("warm_maxiter", 150))
+        self.doom_check = bool(opts.pop("doom_check", True))
+        self.doom_tol = float(opts.pop("doom_tol",
+                                       opts.get("lam_res_tol", 1e-3)))
         unknown = sorted(set(opts) - set(SOLVER_OPTS))
         if unknown:
             raise ValueError(f"unknown solver_opts {unknown}; supported: "
-                             f"{SOLVER_OPTS}")
+                             f"{SOLVER_OPTS + SOLVE_OPTS}")
         if dtype == torch.complex64:
             # complex64 robustness defaults of the JAX solver
             # (bandstructure.py:261-280): two orthogonalization passes,
@@ -114,9 +136,6 @@ class KPointSolver:
             opts.setdefault("refresh_every", 8)
             opts.setdefault("floor_patience", 6)
         self.solver_opts = opts
-        self.warm_maxiter = int(warm_maxiter)
-        self.doom_check = bool(doom_check)
-        self.doom_tol = float(opts.get("lam_res_tol", 1e-3))
         self.last_doom = None   # (it, worst bound) of the last doom bail
         ct = (lattices.ct_matrix(cfg.lattice) if cfg.lattice else np.eye(3))
         self.parts = parts if parts is not None else sym.symbol_parts(
@@ -338,3 +357,219 @@ def eigen_1p(n: int, lattice: str, alpha, *, device,
               f"iter = {result.iterations}, "
               f"runtime = {result.wall_time:<6.3f}s, status = {result.status}")
     return result
+
+
+# What a broken CUDA context or an exhausted card raises: cudaError_t codes
+# of the kernels (kernels/_build.check) and the runtime's, cuBLAS and cuFFT
+# status failures.
+_DEVICE_ERROR_TAGS = ("CUDA error", "cudaError_t", "CUBLAS_STATUS", "cuFFT")
+
+
+def _is_device_error(e: BaseException) -> bool:
+    """True for device / infrastructure faults, after which every later
+    solve would fail too (pcx bandstructure.py:1752-1756 matches XLA's
+    strings; these are the CUDA counterparts)."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    msg = str(e)
+    return any(tag in msg for tag in _DEVICE_ERROR_TAGS)
+
+
+def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
+            eps_opt: int = 0, output_dir: str = "output",
+            indices: Optional[list] = None, gap: int = GAP,
+            dtype: torch.dtype = torch.complex128, tol: float = TOL,
+            maxiter: int = MAXITER, nev: int = NEV, seed: int = 0,
+            verbose: bool = True, metrics_path: Optional[str] = None,
+            solver_opts: Optional[dict] = None,
+            solver_kw: Optional[dict] = None, *,
+            device="cuda") -> list:
+    """Full Brillouin-zone band sweep with per-k-point JSON checkpointing,
+    resume, warm starts and failure containment; returns the list of failed
+    indices.
+
+    Port of ``pcx.bandstructure.bandgap`` (reference: bandgap,
+    numerical_experiments.py:313-496) with the same signature and library
+    schema, except: ``device`` (default ``"cuda"``) and a torch ``dtype``;
+    no ``k_batch``/``mesh`` (the sweep is serial on one device).
+    ``solver_opts`` is the JAX package's dict (e.g.
+    ``{"rr_gram": "pallas"}``); ``solver_kw`` goes to ``KPointSolver``.
+    """
+    cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type,
+                        eps_opt=eps_opt, nev=nev)
+    solver = KPointSolver(cfg, device=device, dtype=dtype,
+                          tol=tol / cfg.scal ** 2, maxiter=maxiter,
+                          solver_opts=solver_opts, **(solver_kw or {}))
+    alphas = lattices.k_path(lattice, gap=gap)
+    n_k = alphas.shape[0]
+
+    suffix = str(eps_opt) if eps_opt else ""
+    path = f"{output_dir}/{diel_type}/bandgap_{lattice}{suffix}.json"
+    lib = BandLibrary(path, lattice, n, n_k, nev)
+    logger = RunLogger(metrics_path, echo=False)
+
+    if indices is None:
+        pending = lib.pending_indices()
+        indices = pending if len(pending) < n_k else list(range(n_k))
+        if not indices:
+            if verbose:
+                print(f"{GREEN}All indices of {diel_type},{lattice} have "
+                      f"been computed without errors.{RESET}")
+            return []
+
+    err_index = []
+    x_prev = None
+    prev_idx = None
+
+    # Rows that already failed on a previous run get a fresh per-run seed
+    # salt, so that a numerically deterministic failure does not repeat
+    # identically on every resume (pcx bandstructure.py:1640-1651).
+    failed_before = set(lib.failed_indices())
+    salt = 0
+    if failed_before:
+        salt = int(np.random.SeedSequence().entropy % 100003) or 1
+        if verbose:
+            print(f"{YELLOW}{len(failed_before)} previously-failed rows "
+                  f"will retry with seed salt {salt}{RESET}")
+
+    def _seed_for(i):
+        return seed + i + (salt if i in failed_before else 0)
+
+    def _accept(result):
+        """Raise unless the solve is acceptable: CONVERGED or FLOOR (or
+        MAXITER with a passing validation), not spurious, and every tracked
+        band's frequency-error bound res * scal^2 / (8 pi^2 omega) within
+        2e-3 (pcx bandstructure.py:1656-1698).  Every port solve validates
+        with the complex128 refine, so pcx's ``_accept_or_escalate``, which
+        only escalates a "light" (working-precision) refine, is this."""
+        stats = (f" [status={Status(result.status).name} "
+                 f"iters={result.iterations} wall={result.wall_time:.1f}s]")
+        ok = result.status in (Status.CONVERGED, Status.FLOOR)
+        if (not ok and result.status == Status.MAXITER
+                and result.report is not None
+                and not result.report.spurious):
+            ok = True
+        if not ok:
+            raise RuntimeError(
+                f"solver status {Status(result.status).name}{stats}")
+        if result.report is not None and result.report.spurious:
+            raise RuntimeError(f"spurious eigenvalues{stats}")
+        rep = result.report
+        if rep is not None and rep.residuals is not None:
+            om = np.maximum(np.asarray(rep.omega_re, float), 0.05)
+            bound = (np.asarray(rep.residuals, float)[: len(om)]
+                     * cfg.scal ** 2 / (8.0 * np.pi ** 2 * om))
+            if float(np.max(bound)) > 2e-3:
+                b = float(np.max(bound))
+                raise RuntimeError(
+                    f"under-converged: frequency-error bound {b:.2e} "
+                    f"(band {int(np.argmax(bound))}; subspace likely "
+                    f"missing a near-degenerate direction){stats}")
+
+    last_commit_t = [time.time()]
+
+    def _commit(i, result):
+        nonlocal x_prev, prev_idx
+        lib.record(i, result.iterations, result.wall_time, result.omega_re)
+        logger.log_solve(RunLogger.from_result("bandgap_k", cfg,
+                                               alphas[i], result))
+        x_prev, prev_idx = result.x, i
+        if verbose:
+            now = time.time()
+            print(f"Gap {i + 1}/{n_k} ({lattice}), "
+                  f"alpha/pi = {np.round(alphas[i] / np.pi, 3)}: "
+                  f"iters = {result.iterations}, "
+                  f"t = {result.wall_time:<6.2f}s, "
+                  f"wall = {now - last_commit_t[0]:.1f}s")
+            last_commit_t[0] = now
+
+    for i in indices:
+        try:
+            warm = (x_prev is not None and prev_idx is not None
+                    and abs(i - prev_idx) <= 1)
+            if not warm and i in failed_before:
+                # Warm-feeder retry: re-solve an already computed neighbour
+                # (not recorded: its row stays untouched) and warm-start
+                # the failed row from its subspace, since cold starts are
+                # how it failed before (pcx bandstructure.py:1782-1816).
+                done = {k for k, rec in enumerate(lib.iterations)
+                        if rec[0] > 0}
+                for j in (i + 1, i - 1):
+                    if 0 <= j < n_k and j in done:
+                        try:
+                            feeder = solver.solve(alphas[j], x0=None,
+                                                  seed=_seed_for(i),
+                                                  verbose=False)
+                        except Exception as e:  # noqa: BLE001
+                            if _is_device_error(e):
+                                raise
+                            continue   # try the other computed neighbour
+                        if verbose:
+                            print(f"{YELLOW}k={i}: warm-feeder solve of "
+                                  f"computed neighbor k={j} "
+                                  f"({feeder.iterations} iters){RESET}")
+                        x_prev, prev_idx = feeder.x, j
+                        warm = True
+                        break
+            retry_cold = False
+            try:
+                result = solver.solve(alphas[i],
+                                      x0=(x_prev if warm else None),
+                                      seed=_seed_for(i), verbose=False)
+                _accept(result)
+            except Exception as e:
+                # One cold retry of a failed warm solve.  It runs after this
+                # handler exits: inside it the live traceback pins the
+                # failed solve's device blocks (pcx bandstructure.py:
+                # 1817-1845).
+                if not warm or _is_device_error(e):
+                    raise
+                print(f"{YELLOW}Warm-started k={i} failed ({e}); "
+                      f"retrying with a cold start{RESET}")
+                retry_cold = True
+            if retry_cold:
+                x_prev = None   # free the warm block before re-solving
+                result = solver.solve(alphas[i], x0=None,
+                                      seed=_seed_for(i) + 10007,
+                                      verbose=False)
+                _accept(result)
+            _commit(i, result)
+        except Exception as e:   # NaN, blow-up, spurious, RR failure
+            # Numerical failures are recorded as [-1,-1] and the sweep goes
+            # on; a device fault aborts it, since every later solve would
+            # fail too and mass-fail the library (resume retries).
+            if _is_device_error(e):
+                print(f"{RED}DEVICE ERROR at k-point {i}: {e} — aborting "
+                      f"sweep (resume will retry){RESET}")
+                raise
+            print(f"{RED}WARNING: Error at k-point {i}: {e}{RESET}")
+            err_index.append(i)
+            lib.record(i, -1, -1, None)
+            x_prev, prev_idx = None, None
+
+    if err_index:
+        print(f"{RED}Error occurs at indices: {err_index}{RESET}")
+    elif verbose:
+        print(f"{GREEN}All indices computed correctly.{RESET}")
+    return err_index
+
+
+def _open_library(path: str, lattice: str, n: int, gap=None):
+    """Open an existing band library and its k-path.  ``gap`` (points per
+    path segment) is inferred from the library's row count when not given,
+    so a library swept with a non-default gap reopens at its own k-path
+    (pcx bandstructure.py:1872-1894)."""
+    n_seg = lattices.sym_points(lattice).shape[0] - 1
+    if gap is None:
+        gap = GAP
+        if os.path.exists(path):
+            with open(path) as f:
+                rows = json.load(f).get(f"{lattice}_{n}_iterations")
+            if rows is not None:
+                if len(rows) % n_seg:
+                    raise ValueError(
+                        f"{path}: {len(rows)} rows is not a multiple of "
+                        f"{n_seg} path segments for {lattice!r}")
+                gap = len(rows) // n_seg
+    alphas = lattices.k_path(lattice, gap=gap)
+    return BandLibrary(path, lattice, n, alphas.shape[0], NEV), alphas

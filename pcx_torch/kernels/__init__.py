@@ -1,17 +1,19 @@
 """The port's hand-written CUDA kernels (sm_90a), one per Pallas TPU kernel
-on the single-k-point path:
+of ``pcx/operators/pallas_kernels.py``:
 
 * K1 ``resid_precond`` — replaces ``fused_resid_precond``;
-* K2 ``axis_dft``      — replaces ``axis_dft_pairs``.
+* K2 ``axis_dft``      — replaces ``axis_dft_pairs``;
+* K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``).
 
 Each wrapper counts its launches in a plain integer attribute
 (``resid_precond.launches``), incremented only where the kernel launches.
 """
 
 from pcx_torch.kernels.axis_dft import axis_dft
+from pcx_torch.kernels.gram9 import gram9
 from pcx_torch.kernels.resid_precond import resid_precond
 
-WRAPPERS = (resid_precond, axis_dft)
+WRAPPERS = (resid_precond, axis_dft, gram9)
 
 
 def reset_launches() -> None:

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers:
-a build takes seconds, not minutes).  The build runs at first use, into
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together) and linked into ONE shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
+seconds, not minutes).  The build runs at first use, into
 ``pcx_torch/_build/`` (git-ignored), under a file name keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
@@ -27,8 +28,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> (argtypes, restype).  Pointers and the stream are
@@ -37,6 +39,8 @@ SIGNATURES = {
     "pcx_resid_precond": ([_P] * 8 + [_I, _LL, _P], _I),
     "pcx_resid_precond_blocks": ([_LL], _I),
     "pcx_axis_dft": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    "pcx_gram9": ([_P] * 8 + [_I, _LL, _I, _P], _I),
+    "pcx_gram9_chunks": ([_LL, _I], _LL),
 }
 
 
@@ -64,6 +68,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libpcx_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> list:
+    """Run the commands concurrently; (command, returncode, output) each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        results.append((cmd, proc.returncode, out))
+    return results
+
+
 def build() -> str:
     """Compile the library unless a build of the same sources exists;
     returns its path.  Raises with the compiler's output on failure."""
@@ -71,17 +87,21 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    out = subprocess.run(cmd, capture_output=True, text=True)
-    if out.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
-                           f"{' '.join(cmd)}\n{out.stdout}{out.stderr}")
-    with open(os.path.splitext(path)[0] + ".log", "w") as f:
-        f.write(out.stdout + out.stderr)
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+                for src in sources()]
+        runs = _run_all([nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(sources(), objs))
+        lib = os.path.join(tmp, "lib.so")
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc(), *ARCH, "-shared", "-o", lib, *objs]])
+        for cmd, rc, out in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
+                                   f"\n{out}")
+        with open(os.path.splitext(path)[0] + ".log", "w") as f:
+            f.write("".join(out for _, _, out in runs))
+        os.replace(lib, path)
     return path
 
 

@@ -3,8 +3,9 @@ tensors.
 
 Port of ``pcx/solvers/lobpcg_rs.py`` (``rs_solver_parts`` composed as
 ``lobpcg_sep_rs``, lines 43-605): fixed-shape masked soft locking,
-SVQB-with-dropping orthonormalization, the stacked [X|W|P]
-complex128-accumulated Rayleigh-Ritz, HX/HP refresh, the FLOOR heuristics
+SVQB-with-dropping orthonormalization, the complex128-accumulated
+Rayleigh-Ritz Gram (stacked [X|W|P], or kernel K3 with ``rr_gram="pallas"``),
+HX/HP refresh, the FLOOR heuristics
 (``floor_patience``, ``col_patience``, ``lam_tol``/``lam_patience``/
 ``lam_res_tol``) and the NaN, stagnation and blow-up guards.  The reference
 algorithm is lobpcg_sep_softlock, paper_2/lobpcg.py:325-492.
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from pcx_torch.config import MAXITER, TOL
+from pcx_torch.kernels.gram9 import gram9
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.lobpcg import SolveResult, Status
 from pcx_torch.utils import real_dtype
@@ -136,6 +138,7 @@ def lobpcg_sep_rs(
     lam_tol: float = 0.0,
     lam_patience: int = 3,
     lam_res_tol: float = 1e-3,
+    rr_gram: str = "xla",
     limit: Optional[int] = None,
     monitor: Optional[Callable[[int, np.ndarray, torch.Tensor], bool]] = None,
 ) -> SolveResult:
@@ -149,11 +152,22 @@ def lobpcg_sep_rs(
     blocks, replacing the residual / column-norm / preconditioner chain by
     one fused pass (kernel K1); ``p_func`` is then not called in the loop.
 
+    ``rr_gram`` keeps the JAX option's name and values: ``"xla"`` forms the
+    Rayleigh-Ritz Gram as one stacked [X|W|P]^H [HX|HW|HP] ``gram_f64`` and
+    updates X and P through the stacked blocks; ``"pallas"`` names the
+    fused-Gram kernel K3 (``pcx_torch.kernels.gram9``), whatever the device
+    (the kernel on CUDA tensors, its plain version on CPU ones), with the
+    operands rounded to complex64 as the TPU kernel does and the blockwise
+    update p = cw W + cp P, x = cx X + p with no concatenation
+    (pcx/solvers/lobpcg_rs.py:496-510).
+
     ``limit``: stop after this many iterations (status MAXITER) — the warm
     start cap of KPointSolver.  ``monitor(it, res, lambdas)``: called after
     each step with the iteration count, the host residuals and the device
     Ritz values; returning True stops the solve (status MAXITER).
     """
+    if rr_gram not in ("xla", "pallas"):
+        raise ValueError(f"unknown rr_gram {rr_gram!r}")
     if lam_tol > 0.0 and lam_patience < 1:
         raise ValueError("lam_patience must be >= 1 (the stillness counter "
                          "starts at 0, so 0 would stop unconditionally)")
@@ -245,22 +259,35 @@ def lobpcg_sep_rs(
             h_against=(hx, hw), passes=ortho_passes)
 
         basis_mask = torch.cat((x_ok, w_ok, p_ok))
-        sf = torch.cat((x, w, pf))
-        hsf = torch.cat((hx, hw, hpf))
-        theta_all, v = masked_rr(rr.gram_f64(sf, hsf), basis_mask, -1.0)
+        if rr_gram == "pallas":
+            t = gram9(*(a.to(torch.complex64)
+                        for a in (x, w, pf, hx, hw, hpf)))
+        else:
+            sf = torch.cat((x, w, pf))
+            hsf = torch.cat((hx, hw, hpf))
+            t = rr.gram_f64(sf, hsf)
+        theta_all, v = masked_rr(t, basis_mask, -1.0)
         c_all = v.to(cdtype) * basis_mask[:, None]
         # The dead columns sort first: the window of m Ritz pairs starts
         # after them (clamped like lax.dynamic_slice).
-        nb = sf.shape[0]
+        nb = 3 * m
         valid = basis_mask.sum()
         start = (nb - valid).clamp(0, nb - m).long()
         idx = start + arange_m
         x_ok = (arange_m >= (m - valid).clamp(min=0)).to(rdtype)
         c = c_all[:, idx]
         lambdas = theta_all.to(rdtype)[idx]
-        p, hp = rr.mix(c[m:], sf[m:]), rr.mix(c[m:], hsf[m:])
-        x, hx = rr.mix(c, sf), rr.mix(c, hsf)
-        del sf, hsf, w, hw, pf, hpf
+        if rr_gram == "pallas":
+            cx, cw, cp = c[:m], c[m:2 * m], c[2 * m:]
+            p = rr.mix(cw, w) + rr.mix(cp, pf)
+            hp = rr.mix(cw, hw) + rr.mix(cp, hpf)
+            x = rr.mix(cx, x) + p
+            hx = rr.mix(cx, hx) + hp
+        else:
+            p, hp = rr.mix(c[m:], sf[m:]), rr.mix(c[m:], hsf[m:])
+            x, hx = rr.mix(c, sf), rr.mix(c, hsf)
+            del sf, hsf
+        del w, hw, pf, hpf
         it += 1
         if monitor is not None and it < stop and monitor(it, res_h, lambdas):
             break

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 
 RED = "\033[31m"
+GREEN = "\033[32m"
+YELLOW = "\033[33m"
 RESET = "\033[0m"
 
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}

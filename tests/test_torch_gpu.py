@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and a small
-complex64 solve through the kernels against the same solve on the CPU.
+"""The port's CUDA kernels against their plain PyTorch versions, a small
+complex64 solve and sweep through the kernels against the same on the CPU,
+and a complex128 sweep on the card against a committed library.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -8,18 +9,24 @@ where JAX is not installed; there, skip the JAX-importing conftest:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from pcx_torch import bandstructure as bs
 from pcx_torch.bandstructure import KPointSolver
 from pcx_torch.config import ProblemConfig
-from pcx_torch.kernels import axis_dft, resid_precond
+from pcx_torch.kernels import axis_dft, gram9, resid_precond
 from pcx_torch.kernels.axis_dft import axis_dft_plain
+from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.operators.dft import dft_mats
 
 pytestmark = pytest.mark.gpu
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _cuda():
@@ -90,3 +97,68 @@ def test_complex64_solve_on_cuda_matches_cpu():
     assert r_gpu.status in (1, 5) and r_cpu.status in (1, 5)
     assert not r_gpu.report.spurious
     np.testing.assert_allclose(r_gpu.omega_re, r_cpu.omega_re, atol=5e-5)
+
+
+def test_k3_cuda_matches_plain():
+    """K3 at the sweep's width with a ragged D tail (the last chunk holds
+    37 + 2048 * k columns), against the plain version: f32 chunk partials
+    on both sides, other summation order inside a chunk."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    m, d = 16, 3 * 120 ** 3 + 37
+    blocks = [torch.randn((m, d), generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(6)]
+    n0 = gram9.launches
+    t = gram9(*blocks)
+    t_p = gram9_plain(*blocks)
+    torch.cuda.synchronize()
+    assert gram9.launches == n0 + 1
+    assert t.dtype == torch.complex128 and t.shape == (3 * m, 3 * m)
+    torch.testing.assert_close(t, t_p, rtol=0.0,
+                               atol=1e-5 * float(t_p.abs().max()))
+    # a width that is not 16: rows and columns past 3m are masked
+    small = [b[:5, :4099].contiguous() for b in blocks]
+    t_p = gram9_plain(*small, chunk=512)
+    torch.testing.assert_close(gram9(*small, chunk=512), t_p, rtol=0.0,
+                               atol=1e-5 * float(t_p.abs().max()))
+
+
+def _sweep(tmp_path, name, device, **kw):
+    out = str(tmp_path / name)
+    err = bs.bandgap(output_dir=out, verbose=False, device=device, **kw)
+    assert err == []
+    with open(os.path.join(out, "chiral", f"bandgap_{kw['lattice']}.json")) \
+            as f:
+        return json.load(f)
+
+
+def test_complex64_sweep_on_cuda_matches_cpu(tmp_path):
+    """bandgap of 3 points at N=16, complex64, rr_gram="pallas": through
+    K1, K2 and K3 on the card, through their plain versions on the CPU;
+    complex64 iterates: frequencies to 5e-5 (tests/test_pallas.py:160)."""
+    dev = _cuda()
+    kw = dict(n=16, lattice="sc_curv", nev=6, gap=5, indices=[0, 1, 2],
+              dtype=torch.complex64, solver_opts={"rr_gram": "pallas"})
+    n0 = (resid_precond.launches, axis_dft.launches, gram9.launches)
+    lib_gpu = _sweep(tmp_path, "gpu", dev, **kw)
+    n1 = (resid_precond.launches, axis_dft.launches, gram9.launches)
+    assert all(b > a for a, b in zip(n0, n1))
+    lib_cpu = _sweep(tmp_path, "cpu", "cpu", **kw)
+    key = "sc_curv_16_frequencies"
+    np.testing.assert_allclose(np.array(lib_gpu[key][:3]),
+                               np.array(lib_cpu[key][:3]), rtol=0, atol=5e-5)
+
+
+def test_complex128_sweep_reproduces_committed_library(tmp_path):
+    """The port's complex128 sweep on the card reproduces the committed
+    f64 library examples/bandgap_sc_flat1_n32.json (20 points, gap 5 from
+    its row count) to 1e-8."""
+    dev = _cuda()
+    src = os.path.join(ROOT, "examples", "bandgap_sc_flat1_n32.json")
+    ref, alphas = bs._open_library(src, "sc_flat1", 32, None)
+    lib = _sweep(tmp_path, "f64", dev, n=32, lattice="sc_flat1", nev=10,
+                 gap=alphas.shape[0] // 4, dtype=torch.complex128)
+    got = np.array(lib["sc_flat1_32_frequencies"])
+    np.testing.assert_allclose(got, np.array(ref.frequencies), rtol=0,
+                               atol=1e-8)

@@ -1,4 +1,5 @@
-"""Kernels K1 (resid_precond) and K2 (axis_dft / dft3) of the port.
+"""Kernels K1 (resid_precond), K2 (axis_dft / dft3) and K3 (gram9) of the
+port.
 
 On the CPU the wrappers take their plain PyTorch versions, which are held
 against the JAX Pallas kernels run in interpret mode (as tests/test_pallas.py
@@ -13,8 +14,9 @@ import torch
 import jax.numpy as jnp
 
 from pcx.operators import dft as jdft
-from pcx.operators.pallas_kernels import dft3_pairs_fused, fused_resid_precond
-from pcx_torch.kernels import axis_dft, resid_precond
+from pcx.operators.pallas_kernels import (dft3_pairs_fused, fused_gram9_pairs,
+                                          fused_resid_precond)
+from pcx_torch.kernels import axis_dft, gram9, resid_precond
 from pcx_torch.operators.dft import dft3, dft_mats
 
 
@@ -76,14 +78,35 @@ def test_dft3_complex128_matches_torch_fft(rng, n):
                                atol=1e-12 * float(x.abs().max()))
 
 
+def _k3_blocks(rng, m, d):
+    return [(rng.normal(size=(m, d)) + 1j * rng.normal(size=(m, d))).astype(
+        np.complex64) for _ in range(6)]
+
+
+@pytest.mark.parametrize("m,d,chunk", [(4, 5000, 1024),
+                                       (3, 1537, 512)])   # ragged tail
+def test_k3_plain_matches_pallas_interpret(rng, m, d, chunk):
+    blocks = _k3_blocks(rng, m, d)
+    t_re, t_im = fused_gram9_pairs(
+        *((jnp.asarray(a.real), jnp.asarray(a.imag)) for a in blocks),
+        chunk=chunk, interpret=True)
+    want = np.asarray(t_re) + 1j * np.asarray(t_im)
+    got = gram9(*(torch.as_tensor(a) for a in blocks), chunk=chunk)
+    assert got.dtype == torch.complex128 and got.shape == (3 * m, 3 * m)
+    # f32 chunk partials on both sides, summed in f64 (tests/test_pallas.py:27)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
 def test_wrappers_count_only_kernel_launches(rng):
     x, hx, lam, idg, isd = (torch.as_tensor(a)
                             for a in _k1_inputs(rng, 2, 64))
-    before = (resid_precond.launches, axis_dft.launches)
+    before = (resid_precond.launches, axis_dft.launches, gram9.launches)
     resid_precond(x, hx, lam, idg, isd)
     axis_dft(torch.zeros((2, 4, 4, 4), dtype=torch.complex64),
              torch.eye(4, dtype=torch.complex64))
-    assert (resid_precond.launches, axis_dft.launches) == before
+    gram9(*(torch.as_tensor(a) for a in _k3_blocks(rng, 2, 100)))
+    assert (resid_precond.launches, axis_dft.launches,
+            gram9.launches) == before
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(rng):
@@ -99,3 +122,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
         resid_precond(x, hx, lam.double(), idg, isd)
     with pytest.raises(ValueError, match="inv_sd"):
         resid_precond(x, hx, lam, idg, isd[:, :10])
+    blocks = [torch.as_tensor(a) for a in _k3_blocks(rng, 2, 100)]
+    with pytest.raises(ValueError, match="hw must be complex64"):
+        gram9(*blocks[:4], blocks[4].to(torch.complex128), blocks[5])
+    with pytest.raises(ValueError, match="p must be complex64"):
+        gram9(blocks[0], blocks[1], blocks[2][:, :50], *blocks[3:])

@@ -142,17 +142,17 @@ def test_eigh_split_and_pencil_match_embeddings(rng):
 
 
 def _pair_solvers(lattice, n, nev, jax_dtype, torch_dtype, jax_kw=None,
-                  **kw):
+                  torch_opts=None, **kw):
     cfg = JaxConfig(n=n, lattice=lattice, nev=nev)
     js = JaxSolver(cfg, dtype=jax_dtype, solver_impl="rs",
                    real_boundary=True, refine=False, **(jax_kw or {}), **kw)
     f = js._f64
     # The JAX one-shot CPU program applies no warm cap and no doom check.
+    opts = {"warm_maxiter": 0, "doom_check": False, **(torch_opts or {})}
     ts = KPointSolver.from_arrays(
         ProblemConfig(n=n, lattice=lattice, nev=nev),
         scale=np.asarray(js.diel.params[0]), d1=f["d1"], d0=f["d0"],
-        ct=f["ct"], device="cpu", dtype=torch_dtype, warm_maxiter=0,
-        doom_check=False, **kw)
+        ct=f["ct"], device="cpu", dtype=torch_dtype, solver_opts=opts, **kw)
     return js, ts
 
 
@@ -185,6 +185,72 @@ def test_complex128_solve_matches_pcx(lattice):
     # Ritz vectors: 1e-8 on frequencies
     np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=1e-8)
     assert not rt.report.spurious
+
+
+def test_complex128_rr_gram_pallas_solve_matches_pcx():
+    """rr_gram="pallas": the Gram of K3 (plain version here; complex64
+    operands, f32 chunk partials summed in f64) and the blockwise update,
+    against the JAX solver with the same option (Pallas interpret mode)."""
+    alpha = np.array([np.pi, 0.2, 0.0])
+    opts = {"rr_gram": "pallas"}
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex128, torch.complex128,
+                           jax_kw={"solver_opts": dict(opts)},
+                           torch_opts=opts)
+    assert ts.solver_opts == opts
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0))
+    rt = ts.solve(alpha, x0=interop.block(x0, torch.complex128, "cpu"))
+    assert rt.status == rj.status
+    assert rt.status in (1, 5)
+    assert abs(rt.iterations - rj.iterations) <= 2
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=1e-8)
+    assert not rt.report.spurious
+
+
+def test_complex64_solve_plain_kernels_match_pallas_interpret_k3():
+    """complex64 with all three kernels' plain versions (K1, K2 and, with
+    rr_gram="pallas", K3) against the three Pallas kernels in interpret
+    mode."""
+    alpha = np.array([np.pi, 0.0, 0.0])
+    kw = dict(tol=1e-5, maxiter=300)
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex64, torch.complex64,
+                           jax_kw={"solver_opts": {"rp_fuse": "pallas",
+                                                   "dft_fuse": "pallas",
+                                                   "rr_gram": "pallas"}},
+                           torch_opts={"rr_gram": "pallas"}, **kw)
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0.astype(np.complex64)))
+    rt = ts.solve(alpha, x0=torch.as_tensor(x0))
+    assert rt.status in (1, 5) and rj.status in (1, 5)
+    # complex64 iterates: frequencies to 5e-5 (tests/test_pallas.py:160)
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=5e-5)
+
+
+def test_one_solver_opts_dict_drives_both_packages():
+    """The JAX KPointSolver pops warm_maxiter, doom_check and doom_tol from
+    solver_opts (pcx/bandstructure.py:238, 255-257); the port takes the
+    same dict and pops the same keys."""
+    opts = {"warm_maxiter": 40, "doom_check": False, "doom_tol": 2e-3,
+            "lam_res_tol": 5e-4, "rr_gram": "pallas"}
+    js = JaxSolver(JaxConfig(n=8, lattice="sc_curv", nev=4),
+                   dtype=jnp.complex128, solver_opts=dict(opts))
+    ts = KPointSolver(ProblemConfig(n=8, lattice="sc_curv", nev=4),
+                      device="cpu", dtype=torch.complex128,
+                      solver_opts=dict(opts))
+    for name in ("warm_maxiter", "doom_check", "doom_tol"):
+        assert getattr(ts, name) == getattr(js, name) == opts[name]
+        assert name not in ts.solver_opts and name not in js.solver_opts
+    assert ts.solver_opts == {"lam_res_tol": 5e-4, "rr_gram": "pallas"}
+    # doom_tol defaults to lam_res_tol, else 1e-3, in both packages
+    for extra, want in (({"lam_res_tol": 5e-4}, 5e-4), ({}, 1e-3)):
+        js = JaxSolver(JaxConfig(n=8, lattice="sc_curv", nev=4),
+                       dtype=jnp.complex128, solver_opts=dict(extra))
+        ts = KPointSolver(ProblemConfig(n=8, lattice="sc_curv", nev=4),
+                          device="cpu", dtype=torch.complex128,
+                          solver_opts=dict(extra))
+        assert ts.doom_tol == js.doom_tol == want
+        assert ts.warm_maxiter == js.warm_maxiter == 150
+        assert ts.doom_check is js.doom_check is True
 
 
 def test_complex64_solve_plain_kernels_match_pallas_interpret():
@@ -282,7 +348,7 @@ def test_eigen_1p_converges_without_spurious_modes():
 def test_warm_maxiter_caps_warm_solves_only():
     cfg = ProblemConfig(n=8, lattice="sc_flat1", nev=4)
     solver = KPointSolver(cfg, device="cpu", dtype=torch.complex128,
-                          warm_maxiter=8)
+                          solver_opts={"warm_maxiter": 8})
     alpha = np.array([np.pi, 0, 0])
     cold = solver.solve(alpha, seed=1, validate_result=False)
     assert cold.iterations > 8
@@ -294,9 +360,13 @@ def test_warm_maxiter_caps_warm_solves_only():
 
 def test_solver_rejects_unknown_options_and_dielectrics():
     cfg = ProblemConfig(n=8, lattice="sc_curv", nev=4)
-    with pytest.raises(ValueError, match="rr_gram"):
+    with pytest.raises(ValueError, match="rr_mirror"):
         KPointSolver(cfg, device="cpu", dtype=torch.complex128,
-                     solver_opts={"rr_gram": "pallas"})
+                     solver_opts={"rr_mirror": True})
+    with pytest.raises(ValueError, match="unknown rr_gram 'xla9'"):
+        KPointSolver(cfg, device="cpu", dtype=torch.complex128,
+                     solver_opts={"rr_gram": "xla9"}).solve(
+                         np.array([np.pi, 0, 0]))
     with pytest.raises(NotImplementedError, match="chiral"):
         KPointSolver(ProblemConfig(n=8, diel_type="pseudochiral_trivial"),
                      device="cpu", dtype=torch.complex128)
