@@ -6,15 +6,18 @@ Phases, in order; each prints one line with its numbers, and the first
 failure ends the run with a non-zero exit:
 
 1. device  — require CUDA; print the card's name and power limit, and the
-             peak rates the kernels' bounds use.
+             peak rates the kernels' bounds use: IEEE f32 on the CUDA cores
+             (K1) and 3xTF32 on the tensor cores (K2, K3).
 2. build   — compile the CUDA kernels (nvcc, sm_90a, one process per
              source, all at once) from the sources.
 3. k1      — K1 resid_precond vs its plain version at m=16, N=120.
-4. k2      — K2 axis_dft vs the einsum at B=48, N=120, one pass and a full
-             dft3 forward and back (against torch.fft.fftn).
-5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048;
-             timed beside the stacked ``rr.gram_f64`` (the rr_gram="xla"
-             route), with and without the torch.cat that builds its input.
+4. k2      — K2 axis_dft vs the einsum at B=48, N=120, one pass (and both
+             against complex128) and a full dft3 forward and back (against
+             torch.fft.fftn); timed beside torch.matmul on the permuted view.
+5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
+             (and both against complex128); timed beside the stacked
+             ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
+             torch.cat that builds its input.
 6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
@@ -34,8 +37,9 @@ phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
 route), and reset again just before phase 9 and read after it (K1, K2 and
 K3 must all have launched).  The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches, the kernel's time beside its plain
-version's, its bound on this card and the time of the PyTorch library
-call that computes the same function (null where there is none).
+version's, its bound on this card at the peak of the units it runs on
+(``arith``, ``bound_peak``) and the time of the PyTorch library call that
+computes the same function (null where there is none).
 
 The last line of standard output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -63,6 +67,10 @@ NEV = 10
 SPURIOUS_TOL = 1e-3      # |omega - omega_re| gate (pcx validate.recompute)
 GOLDEN_TOL = 3.5e-3      # complex64 golden scale (README, ROADMAP R3)
 HBM_BYTES_S = 3.35e12    # H100 SXM device-memory rate (NVIDIA data sheet)
+# Dense TF32 on the H100 SXM tensor cores at 700 W (NVIDIA data sheet); the
+# 3xTF32 split of K2 and K3 runs three TF32 products per f32 product.
+TF32X3_FLOPS = 495e12 / 3
+FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 SWEEP_INDICES = [8, 9, 10, 11, 12]
 
 FAIL = 1
@@ -103,10 +111,28 @@ def smi(query: str) -> str:
 def bound(ops: float, nbytes: float, peak_flops: float) -> dict:
     """The least time the card could take for work of ``ops`` f32
     operations on ``nbytes`` read once and written once: the larger of
-    bytes over the memory rate and operations over the IEEE f32 peak."""
+    bytes over the memory rate and operations over ``peak_flops``, the peak
+    of the units the kernel computes on."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak_flops
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_peak": peak_flops}
+
+
+def tensor_core_record(ms: float, lib_ms: float, ops: float,
+                       nbytes: float, peak: float) -> tuple:
+    """(record keys, printable summary) of a 3xTF32 kernel: its bound on
+    the tensor cores and on the CUDA cores, its share of the former and its
+    time over the library call's."""
+    b = bound(ops, nbytes, TF32X3_FLOPS)
+    b_fp32 = bound(ops, nbytes, peak)["bound_ms"]
+    rec = {"arith": TF32X3, **b, "bound_fp32_ms": b_fp32,
+           "share": b["bound_ms"] / ms, "over_library": ms / lib_ms}
+    text = (f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}, 3xTF32 at "
+            f"{TF32X3_FLOPS / 1e12:.2f} TFLOP/s) = {100 * rec['share']:.1f}%"
+            f" reached; on the CUDA cores' f32 peak {b_fp32:.3f} ms; kernel "
+            f"/ library {rec['over_library']:.3f}")
+    return rec, text
 
 
 def phase_device() -> float:
@@ -122,7 +148,9 @@ def phase_device() -> float:
     print(f"phase device: {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__},"
           f" cuda {torch.version.cuda}; {sms} SMs at {clock_mhz:.0f} MHz max:"
-          f" IEEE f32 peak {peak / 1e12:.2f} TFLOP/s; memory "
+          f" IEEE f32 peak {peak / 1e12:.2f} TFLOP/s (CUDA cores, K1); "
+          f"3xTF32 peak {TF32X3_FLOPS / 1e12:.2f} TFLOP/s (dense TF32 495 "
+          f"TFLOP/s at 700 W, data sheet, / 3; K2, K3); memory "
           f"{HBM_BYTES_S / 1e12:.2f} TB/s (data sheet)", flush=True)
     if not peak > 0:
         fail("could not read the SM clock from nvidia-smi")
@@ -172,15 +200,17 @@ def phase_k1(gen, dev, peak: float) -> dict:
     print(f"phase k1: m={m} N={n} max|dw|={err_w:.3e} (max|w| {w_scale:.3e})"
           f" max rel dsumsq={ss_rel:.3e} kernel {ms:.3f} ms plain "
           f"{plain_ms:.3f} ms bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']}); no library call", flush=True)
+          f"({b['bound_by']}, IEEE f32 on the CUDA cores) = "
+          f"{100 * b['bound_ms'] / ms:.1f}% reached; no library call",
+          flush=True)
     if not (ok_w and ok_ss):
         fail("K1 disagrees with its plain version (w rtol 1e-5 atol "
              "1e-6*max|w|, sumsq rtol 1e-5)")
-    return {"name": "resid_precond", "route": "cuda",
+    return {"name": "resid_precond", "route": "cuda", "arith": FP32_FMA,
             "source": "pcx_torch/kernels/csrc/resid_precond.cu",
             "replaces": "pcx/operators/pallas_kernels.py:130",
             "max_abs_err": err_w, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+            "share": b["bound_ms"] / ms, "library_ms": None}
 
 
 def phase_k2(gen, dev, peak: float) -> dict:
@@ -192,10 +222,14 @@ def phase_k2(gen, dev, peak: float) -> dict:
                     dtype=torch.complex64)
     y_k = axis_dft(x, mats.fwd)
     y_p = axis_dft_plain(x, mats.fwd)
+    y_128 = axis_dft_plain(x.to(torch.complex128),
+                           mats.fwd.to(torch.complex128))
     torch.cuda.synchronize()
     err = max_err(y_k, y_p)
     scale = float(y_p.abs().max())
-    del y_k, y_p
+    err_k128 = max_err(y_k.to(torch.complex128), y_128)
+    err_p128 = max_err(y_p.to(torch.complex128), y_128)
+    del y_k, y_p, y_128
     f_k = dft3(x, mats.fwd)
     f_ref = torch.fft.fftn(x, dim=(-3, -2, -1))
     err_f = max_err(f_k, f_ref)
@@ -213,13 +247,15 @@ def phase_k2(gen, dev, peak: float) -> dict:
     dft3_ms = cuda_ms(lambda: dft3(x, mats.fwd))
     fft_ms = cuda_ms(lambda: torch.fft.fftn(x, dim=(-3, -2, -1)))
     # B N^3 outputs of N complex multiply-adds (8 flop); x, w in, y out
-    bd = bound(8.0 * b * n ** 4, 8.0 * (2 * b * n ** 3 + n * n), peak)
+    rec, text = tensor_core_record(ms, lib_ms, 8.0 * b * n ** 4,
+                                   8.0 * (2 * b * n ** 3 + n * n), peak)
     print(f"phase k2: B={b} N={n} pass max|dy|/scale={err / scale:.3e} "
-          f"dft3 fwd vs fftn {err_f / scale_f:.3e} fwd+inv vs x "
-          f"{err_b / scale_b:.3e}; one pass: kernel {ms:.3f} ms einsum "
-          f"{plain_ms:.3f} ms matmul {lib_ms:.3f} ms bound "
-          f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); 3-D: dft3 (3 kernel "
-          f"passes) {dft3_ms:.3f} ms cuFFT fftn {fft_ms:.3f} ms", flush=True)
+          f"(vs complex128: kernel {err_k128 / scale:.3e}, einsum "
+          f"{err_p128 / scale:.3e}) dft3 fwd vs fftn {err_f / scale_f:.3e} "
+          f"fwd+inv vs x {err_b / scale_b:.3e}; one pass: kernel {ms:.3f} "
+          f"ms einsum {plain_ms:.3f} ms matmul {lib_ms:.3f} ms; {text}; "
+          f"3-D: dft3 (3 kernel passes) {dft3_ms:.3f} ms cuFFT fftn "
+          f"{fft_ms:.3f} ms", flush=True)
     if not (err <= 5e-6 * scale and err_f <= 5e-6 * scale_f
             and err_b <= 5e-6 * scale_b):
         fail("K2 disagrees with its plain version / torch.fft (atol "
@@ -227,9 +263,9 @@ def phase_k2(gen, dev, peak: float) -> dict:
     return {"name": "axis_dft", "route": "cuda",
             "source": "pcx_torch/kernels/csrc/axis_dft.cu",
             "replaces": "pcx/operators/pallas_kernels.py:288",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": lib_ms, "dft3_ms": dft3_ms,
-            "cufft_fftn_ms": fft_ms}
+            "max_abs_err": err, "max_abs_err_c128": err_k128, "ms": ms,
+            "plain_ms": plain_ms, **rec, "library_ms": lib_ms,
+            "dft3_ms": dft3_ms, "cufft_fftn_ms": fft_ms}
 
 
 def phase_k3(gen, dev, peak: float) -> dict:
@@ -240,33 +276,37 @@ def phase_k3(gen, dev, peak: float) -> dict:
                           dtype=torch.complex64) for _ in range(6)]
     t_k = gram9(*blocks)
     t_p = gram9_plain(*blocks)
+    s, hs = torch.cat(blocks[:3]), torch.cat(blocks[3:])
+    t_128 = s.to(torch.complex128).conj() @ hs.to(torch.complex128).T
     torch.cuda.synchronize()
     err = max_err(t_k, t_p)
     scale = float(t_p.abs().max())
+    err_k128, err_p128 = max_err(t_k, t_128), max_err(t_p, t_128)
+    err_lib = max_err(rr.gram_f64(s, hs), t_p)
+    lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
+    del s, hs, t_128
     ms = cuda_ms(lambda: gram9(*blocks))
     plain_ms = cuda_ms(lambda: gram9_plain(*blocks))
     cat_ms = cuda_ms(lambda: rr.gram_f64(torch.cat(blocks[:3]),
                                          torch.cat(blocks[3:])))
-    s, hs = torch.cat(blocks[:3]), torch.cat(blocks[3:])
-    err_lib = max_err(rr.gram_f64(s, hs), t_p)
-    lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
-    del s, hs
     # (3m)^2 D complex conjugate products (8 flop); six blocks in, T out
-    b = bound(8.0 * (3 * m) ** 2 * d, 8.0 * 6 * m * d + 16.0 * (3 * m) ** 2,
-              peak)
+    rec, text = tensor_core_record(ms, lib_ms, 8.0 * (3 * m) ** 2 * d,
+                                   8.0 * 6 * m * d + 16.0 * (3 * m) ** 2,
+                                   peak)
     print(f"phase k3: m={m} D={d} chunk 2048 max|dT|/max|T|="
-          f"{err / scale:.3e} (stacked gram_f64 vs plain "
+          f"{err / scale:.3e} (vs complex128: kernel {err_k128 / scale:.3e},"
+          f" plain {err_p128 / scale:.3e}; stacked gram_f64 vs plain "
           f"{err_lib / scale:.3e}); kernel {ms:.3f} ms plain {plain_ms:.3f} "
           f"ms library gram_f64 on the stacked blocks {lib_ms:.3f} ms, with "
-          f"the two torch.cat {cat_ms:.3f} ms; bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']})", flush=True)
+          f"the two torch.cat {cat_ms:.3f} ms; {text}", flush=True)
     if not err <= 1e-5 * scale:
         fail("K3 disagrees with its plain version (atol 1e-5*max|T|)")
     return {"name": "gram9", "route": "cuda",
             "source": "pcx_torch/kernels/csrc/gram9.cu",
             "replaces": "pcx/operators/pallas_kernels.py:27",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": lib_ms, "library_with_cat_ms": cat_ms}
+            "max_abs_err": err, "max_abs_err_c128": err_k128, "ms": ms,
+            "plain_ms": plain_ms, **rec, "library_ms": lib_ms,
+            "library_with_cat_ms": cat_ms}
 
 
 def phase_operator(gen, dev, n: int = N) -> None:

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
-per source, all started together) and linked into ONE shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
-seconds, not minutes).  The build runs at first use, into
-``pcx_torch/_build/`` (git-ignored), under a file name keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads.
+per source, all started together, with ``-I csrc`` for the shared headers
+``csrc/*.cuh``) and linked into ONE shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
+minutes).  The build runs at first use, into ``pcx_torch/_build/``
+(git-ignored), under a file name keyed by a hash of the sources, the headers
+and the flags, so an edited source or header rebuilds and an unchanged tree
+loads.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``<name>.log``.
 
@@ -44,8 +46,12 @@ SIGNATURES = {
 }
 
 
-def sources() -> list:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str = CSRC) -> list:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
+
+
+def headers(csrc: str = CSRC) -> list:
+    return sorted(glob.glob(os.path.join(csrc, "*.cuh")))
 
 
 def nvcc() -> str:
@@ -60,9 +66,11 @@ def nvcc() -> str:
                        "built from source and need the CUDA toolkit")
 
 
-def library_path() -> str:
+def library_path(csrc: str = CSRC) -> str:
+    """The library's path, keyed by the flags and every source and header
+    under ``csrc``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(csrc) + headers(csrc):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libpcx_kernels_{h.hexdigest()[:16]}.so")
@@ -90,7 +98,8 @@ def build() -> str:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
                 for src in sources()]
-        runs = _run_all([nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+        runs = _run_all([nvcc(), *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj,
+                         src]
                         for src, obj in zip(sources(), objs))
         lib = os.path.join(tmp, "lib.so")
         if all(rc == 0 for _, rc, _ in runs):

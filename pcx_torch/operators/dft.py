@@ -1,12 +1,13 @@
-"""3-D DFT as three explicit axis contractions with full-f32 products.
+"""3-D DFT as three explicit axis contractions with f32-accurate products.
 
 Port of ``pcx/operators/dft.py``.  The TPU's builtin FFT lowers to
 reduced-precision passes that raise the LOBPCG residual floor ~100x and breed
 phantom Ritz values; pcx therefore applies the DFT along each grid axis as an
 (N, N) matrix contraction at full precision.  The port keeps that form for
-the complex64 iterate: each pass is kernel K2 (``pcx_torch.kernels.axis_dft``),
-which contracts the -3rd axis and writes the transformed axis last, so three
-passes restore the axis order.  complex128 (the CPU parity runs) takes the
+the complex64 iterate: each pass is kernel K2 (``pcx_torch.kernels.axis_dft``,
+3xTF32 products on the card's tensor cores, the counterpart of the TPU's
+Precision.HIGHEST), which contracts the -3rd axis and writes the transformed
+axis last, so three passes restore the axis order.  complex128 (the CPU parity runs) takes the
 plain einsum; the complex128 refine uses ``torch.fft`` directly.
 """
 

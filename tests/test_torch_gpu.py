@@ -69,10 +69,29 @@ def test_k2_cuda_matches_plain(n):
     y_p = axis_dft_plain(x, w)
     torch.cuda.synchronize()
     assert axis_dft.launches == n0 + 1
-    # IEEE f32 FMAs vs the einsum's f32 GEMM: 5e-6 of the output scale
-    # (TF32 would show ~1e-3)
+    # 3xTF32 tensor-core products vs the einsum's f32 GEMM: 5e-6 of the
+    # output scale (single-pass TF32 would show ~1e-3)
     torch.testing.assert_close(y, y_p, rtol=0.0,
                                atol=5e-6 * float(y_p.abs().max()))
+
+
+@pytest.mark.parametrize("n", [100, 120, 150])
+def test_k2_cuda_error_vs_complex128(n):
+    """The kernel's and the einsum's errors against complex128, side by
+    side: both within 5e-6 of the output scale."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn((6, n, n, n), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    w = dft_mats(n, torch.complex64, dev).fwd
+    want = axis_dft_plain(x.to(torch.complex128), w.to(torch.complex128))
+    scale = float(want.abs().max())
+    err_k = float((axis_dft(x, w).to(torch.complex128) - want).abs().max())
+    err_p = float((axis_dft_plain(x, w).to(torch.complex128)
+                   - want).abs().max())
+    assert err_p <= 5e-6 * scale
+    assert err_k <= 5e-6 * scale
 
 
 def test_kernels_reject_non_contiguous_cuda_input():
@@ -122,6 +141,27 @@ def test_k3_cuda_matches_plain():
     t_p = gram9_plain(*small, chunk=512)
     torch.testing.assert_close(gram9(*small, chunk=512), t_p, rtol=0.0,
                                atol=1e-5 * float(t_p.abs().max()))
+
+
+@pytest.mark.parametrize("m,d,chunk", [(16, 3 * 120 ** 3 + 37, 2048),
+                                       (5, 4099, 512)])
+def test_k3_cuda_error_vs_complex128(m, d, chunk):
+    """The kernel's and the plain version's errors against complex128, side
+    by side, with a ragged D tail: both within 1e-5 of max|T|."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    blocks = [torch.randn((m, d), generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(6)]
+    s, hs = (torch.cat(b).to(torch.complex128)
+             for b in (blocks[:3], blocks[3:]))
+    want = s.conj() @ hs.T
+    del s, hs
+    scale = float(want.abs().max())
+    err_k = float((gram9(*blocks, chunk=chunk) - want).abs().max())
+    err_p = float((gram9_plain(*blocks, chunk=chunk) - want).abs().max())
+    assert err_p <= 1e-5 * scale
+    assert err_k <= 1e-5 * scale
 
 
 def _sweep(tmp_path, name, device, **kw):

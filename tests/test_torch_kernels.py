@@ -4,12 +4,15 @@ port.
 On the CPU the wrappers take their plain PyTorch versions, which are held
 against the JAX Pallas kernels run in interpret mode (as tests/test_pallas.py
 runs them).  The CUDA kernels themselves are held against the plain versions
-in tests/test_torch_gpu.py.
+in tests/test_torch_gpu.py.  The 3xTF32 split that K2 and K3 compute with on
+the card's tensor cores (csrc/tf32x3.cuh) is emulated here in float32 and
+held against complex128 at the card tests' tolerances.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -127,3 +130,115 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
         gram9(*blocks[:4], blocks[4].to(torch.complex128), blocks[5])
     with pytest.raises(ValueError, match="p must be complex64"):
         gram9(blocks[0], blocks[1], blocks[2][:, :50], *blocks[3:])
+
+
+# --- the 3xTF32 split of csrc/tf32x3.cuh, emulated on float32 -------------
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits -- half a TF32 ulp added to the sign-magnitude bits, the
+    low 13 cleared (integer ops on the bit view, as the kernels do)."""
+    return ((a.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _mma3(a, b, d):
+    """d + a @ b as three TF32 products, small ones first: lo*hi, hi*lo,
+    hi*hi, each exact in f32 and summed over the k8 step in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    for p, q in ((al, bh), (ah, bl), (ah, bh)):
+        d = d + p @ q
+    return d
+
+
+def _mma1(a, b, d):
+    """d + a @ b in single-pass TF32: what the kernels must not do."""
+    return d + _tf32(a) @ _tf32(b)
+
+
+def _cmma(ar, ai, br, bi, mma, conj_a):
+    """One k8 step's complex product, formed in fresh f32 sums (the kernels
+    add it to their running sums afterwards): A B, or conj(A) B."""
+    zero = torch.zeros(ar.shape[:-1] + br.shape[-1:])
+    if conj_a:
+        return (mma(ai, bi, mma(ar, br, zero)),
+                mma(-ai, br, mma(ar, bi, zero)))
+    return (mma(-ai, bi, mma(ar, br, zero)),
+            mma(ai, br, mma(ar, bi, zero)))
+
+
+def _k2_emulated(x, w, mma):
+    """K2 on the tensor cores: y[b,j,k,c] = sum_a x[b,a,j,k] w[a,c], the
+    contraction zero-padded to k8 steps, each added to f32 sums."""
+    pad = (-x.shape[1]) % 8
+    xt = x.permute(0, 2, 3, 1)
+    xr, xi = (F.pad(t, (0, pad)) for t in (xt.real, xt.imag))
+    wr, wi = (F.pad(t, (0, 0, 0, pad)) for t in (w.real, w.imag))
+    re = im = 0.0
+    for a0 in range(0, xr.shape[-1], 8):
+        sl = slice(a0, a0 + 8)
+        tr, ti = _cmma(xr[..., sl], xi[..., sl], wr[sl], wi[sl], mma, False)
+        re, im = re + tr, im + ti
+    return torch.complex(re, im)
+
+
+def _k3_emulated(blocks, chunk, mma):
+    """K3 on the tensor cores: one f32 partial of conj(S) HS^T per D-chunk
+    (k8 steps added to f32 sums), the partials summed in complex128."""
+    s, hs = torch.cat(blocks[:3]), torch.cat(blocks[3:])
+    out = torch.zeros((s.shape[0],) * 2, dtype=torch.complex128)
+    for c0 in range(0, s.shape[1], chunk):
+        pad = -min(chunk, s.shape[1] - c0) % 8
+        part = [F.pad(t[:, c0:c0 + chunk], (0, pad))
+                for t in (s.real, s.imag, hs.real, hs.imag)]
+        re = im = 0.0
+        for d0 in range(0, part[0].shape[1], 8):
+            sr, si, hr, hi = (t[:, d0:d0 + 8] for t in part)
+            tr, ti = _cmma(sr, si, hr.T, hi.T, mma, True)
+            re, im = re + tr, im + ti
+        out += torch.complex(re, im).to(torch.complex128)
+    return out
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10   # TF32 keeps 10 mantissa bits
+    a = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + 0.49 * one_ulp, 1.0 + 1.5 * one_ulp, 3.0e-3])
+    got = _tf32(a)
+    assert got[:4].tolist() == [1.0 + one_ulp, -(1.0 + one_ulp), 1.0,
+                                1.0 + 2 * one_ulp]
+    assert abs(float(got[4]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+@pytest.mark.parametrize("n", [12, 16])
+def test_k2_3xtf32_split_keeps_f32_accuracy(rng, n):
+    """The split's error against complex128 stays inside the card test's
+    5e-6 of the output scale; single-pass TF32 does not."""
+    x = (rng.standard_normal((3, n, n, n))
+         + 1j * rng.standard_normal((3, n, n, n))).astype(np.complex64)
+    x = torch.as_tensor(x)
+    w = dft_mats(n, torch.complex64, "cpu").fwd
+    want = torch.einsum("bajk,ac->bjkc", x.to(torch.complex128),
+                        w.to(torch.complex128))
+    scale = float(want.abs().max())
+    err = lambda mma: float((_k2_emulated(x, w, mma).to(torch.complex128)
+                             - want).abs().max())
+    assert err(_mma3) <= 5e-6 * scale
+    assert err(_mma1) > 5e-6 * scale
+
+
+@pytest.mark.parametrize("m,d,chunk", [(5, 4099, 512),
+                                       (16, 3 * 16 ** 3 + 37, 2048)])
+def test_k3_3xtf32_split_keeps_f32_accuracy(rng, m, d, chunk):
+    """Ragged D: the split's error against complex128 stays inside the card
+    test's 1e-5 of max|T|; single-pass TF32 does not."""
+    blocks = [torch.as_tensor(a) for a in _k3_blocks(rng, m, d)]
+    s, hs = torch.cat(blocks[:3]), torch.cat(blocks[3:])
+    want = s.to(torch.complex128).conj() @ hs.to(torch.complex128).T
+    scale = float(want.abs().max())
+    err = lambda mma: float((_k3_emulated(blocks, chunk, mma)
+                             - want).abs().max())
+    assert err(_mma3) <= 1e-5 * scale
+    assert err(_mma1) > 1e-5 * scale
