@@ -32,10 +32,35 @@ failure ends the run with a non-zero exit:
              and swept again, which must go through the warm feeder,
              restore it and leave rows 9 and 11 byte for byte.
 
+10. pseudo-operator — the Hermitian-tensor dielectrics at N=120 on a
+             2-column block: complex64 ama_bb (K2) with the cross-DoF and
+             the trivial eps^{-1} vs complex128 torch.fft (limit as phase
+             6), each eps^{-1} apply alone complex64 vs complex128, and
+             <x, M y> = conj <y, M x> to 1e-5 in complex64; ms per
+             16-column apply of each dielectric (cross-DoF with preset 0,
+             one non-zero off-diagonal entry, and preset 3, all three).
+11. pseudo-sweep — ``bandgap`` sc_curv pseudochiral_crossdof N=120 complex64
+             with rr_gram="pallas" over k_path indices 7-10 (one cold point,
+             three warm), every row CONVERGED or FLOOR, inside the 1e-3
+             spurious gate and within 3.5e-3 of
+             output_c64/pseudochiral_crossdof/bandgap_sc_curv.json (a warm
+             solve that the sweep rejects and retries cold is printed and
+             passes if the retry does).  Then three single cold solves, each
+             gated against its committed row: pseudochiral_trivial at k_path
+             index 10 with solver="softlock" and with solver="descent", and
+             the chiral point of phase 7 with solver="nolock" (the two
+             variants may also end MAXITER: the gates still decide).
+             The indices keep |alpha| > 1: below it the penalty weight is
+             (2 pi / |alpha|)^2, and at N=120 a COLD complex64 solve of
+             indices 0-2 stalls at a residual that the sweep's acceptance
+             gate refuses, with every dielectric (measured on an H100;
+             warm solves at indices 3-4 pass).
+
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
-route), and reset again just before phase 9 and read after it (K1, K2 and
-K3 must all have launched).  The ``{"kernels": [...]}`` line gives, per
+route), reset again just before phase 9 and read after it (K1, K2 and
+K3 must all have launched), and once more before phase 11: read after its
+sweep (K1, K2, K3) and after its single solves (K1, K2).  The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches, the kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -72,6 +97,9 @@ HBM_BYTES_S = 3.35e12    # H100 SXM device-memory rate (NVIDIA data sheet)
 TF32X3_FLOPS = 495e12 / 3
 FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 SWEEP_INDICES = [8, 9, 10, 11, 12]
+PSEUDO_INDICES = [7, 8, 9, 10]
+TRIVIAL_INDEX = 10
+CROSSDOF, TRIVIAL = "pseudochiral_crossdof", "pseudochiral_trivial"
 
 FAIL = 1
 
@@ -309,12 +337,15 @@ def phase_k3(gen, dev, peak: float) -> dict:
             "library_with_cat_ms": cat_ms}
 
 
-def phase_operator(gen, dev, n: int = N) -> None:
+def phase_operator(gen, dev, n: int = N, diel_type: str = "chiral"):
+    """complex64 ama_bb through K2 against complex128 through torch.fft;
+    returns the solver (for its dielectric)."""
     from pcx_torch.bandstructure import KPointSolver
     from pcx_torch.config import ProblemConfig
     from pcx_torch.operators import maxwell
     from pcx_torch.operators import symbols as sym
-    kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=NEV),
+    kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=NEV,
+                                     diel_type=diel_type),
                        device=dev, dtype=torch.complex64)
     alpha = np.array([np.pi, 0.0, 0.0])
     sy = kps.symbols_for(alpha)
@@ -327,25 +358,78 @@ def phase_operator(gen, dev, n: int = N) -> None:
     y64 = maxwell.ama_bb(x, d_a, b, kps.diel, sy.shift)
     rel = float(torch.linalg.norm(y32.to(torch.complex128) - y64)
                 / torch.linalg.norm(y64))
-    print(f"phase operator: N={n} complex64 ama_bb (K2) vs complex128 "
-          f"torch.fft: relative error {rel:.3e}", flush=True)
+    print(f"phase operator: {diel_type} N={n} complex64 ama_bb (K2) vs "
+          f"complex128 torch.fft: relative error {rel:.3e}", flush=True)
     if not rel <= 1e-5:
-        fail("complex64 operator disagrees with complex128 (> 1e-5)")
+        fail(f"complex64 {diel_type} operator disagrees with complex128 "
+             f"(> 1e-5)")
+    return kps
 
 
-def golden_row(lattice: str, n: int, index: int):
-    path = os.path.join(HERE, "output_c64", "chiral",
+def phase_pseudo_operator(gen, dev, n: int = N) -> dict:
+    """Phase 10; returns the ms per 16-column apply of each dielectric."""
+    from pcx_torch.operators.dielectric import build
+    ms = {}
+    for diel_type in (CROSSDOF, TRIVIAL, "chiral", CROSSDOF + " preset 3"):
+        if diel_type == "chiral":     # the last two: timed only
+            diel = build(diel_type, n, "sc_curv", dev)
+        elif diel_type.endswith("preset 3"):   # all three component pairs
+            diel = build(CROSSDOF, n, "sc_curv", dev, eps_opt=3)
+        else:
+            diel = phase_operator(gen, dev, n, diel_type).diel
+            x, y = (torch.randn((2, 3, n, n, n), generator=gen, device=dev,
+                                dtype=torch.complex128) for _ in range(2))
+            x32, y32 = x.to(torch.complex64), y.to(torch.complex64)
+            my64, my32 = diel(y), diel(y32)
+            rel = float(torch.linalg.norm(my32.to(torch.complex128) - my64)
+                        / torch.linalg.norm(my64))
+            a = torch.vdot(x32.flatten(), my32.flatten())
+            b = torch.vdot(y32.flatten(), diel(x32).flatten()).conj()
+            herm = float((a - b).abs() / a.abs())
+            print(f"phase pseudo-operator: {diel_type} N={n} eps^-1 apply "
+                  f"complex64 vs complex128: relative error {rel:.3e}; "
+                  f"|<x,My> - conj<y,Mx>| / |<x,My>| = {herm:.3e} "
+                  f"(complex64)", flush=True)
+            if my32.dtype != torch.complex64 or not rel <= 1e-6:
+                fail(f"complex64 {diel_type} apply disagrees with "
+                     f"complex128 (> 1e-6) or was promoted")
+            if not herm <= 1e-5:
+                fail(f"{diel_type} apply is not Hermitian in complex64 "
+                     f"(> 1e-5)")
+            del x, y, x32, y32, my64, my32
+        if dev.type == "cuda":
+            x16 = torch.randn((16, 3, n, n, n), generator=gen, device=dev,
+                              dtype=torch.complex64)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ms[diel_type] = cuda_ms(lambda: diel(x16))
+            extra = torch.cuda.max_memory_allocated(dev) - base
+            print(f"phase pseudo-operator: {diel_type} eps^-1 apply on a "
+                  f"(16, 3, {n}^3) complex64 block "
+                  f"({x16.numel() * 8 / 2**20:.0f} MiB): "
+                  f"{ms[diel_type]:.3f} ms (CUDA events, median of 10), "
+                  f"{extra / 2**20:.0f} MiB above the block at its peak",
+                  flush=True)
+            del x16
+    return ms
+
+
+def golden_row(lattice: str, n: int, index: int, diel_type: str = "chiral"):
+    path = os.path.join(HERE, "output_c64", diel_type,
                         f"bandgap_{lattice}.json")
     with open(path) as f:
         return np.asarray(json.load(f)[f"{lattice}_{n}_frequencies"][index])
 
 
-def gate(kps, alpha, res, golden, tag: str) -> str:
+def gate(kps, alpha, res, golden, tag: str, maxiter_ok: bool = False) -> str:
     """'' if the solve passes the gates, else why not: status CONVERGED or
-    FLOOR, refined |omega - omega_re| <= 1e-3, finite Ritz vectors of the
-    block shape, and omega_re within 3.5e-3 of the golden row."""
+    FLOOR (with ``maxiter_ok`` also MAXITER: the slower solver variants),
+    refined |omega - omega_re| <= 1e-3, finite Ritz vectors of the block
+    shape, and omega_re within 3.5e-3 of the golden row."""
     from pcx_torch.solvers.lobpcg import Status
-    if res.status not in (Status.CONVERGED, Status.FLOOR):
+    ok = (Status.CONVERGED, Status.FLOOR) + ((Status.MAXITER,) if maxiter_ok
+                                             else ())
+    if res.status not in ok:
         return f"status {Status(res.status).name}"
     rep = kps.validate_solution(alpha, res, raise_on_spurious=False)
     dev = float(np.abs(rep.omega_pnt - rep.omega_re).max())
@@ -481,6 +565,96 @@ def phase_sweep(dev, n: int = N, golden: bool = True) -> None:
                 fail(f"restored row 10: {dev10:.3e} from the golden row")
 
 
+def phase_pseudo_sweep(dev, n: int = N, golden: bool = True) -> None:
+    """Phase 11, the sweep: bandgap of the cross-DoF dielectric over
+    PSEUDO_INDICES with K3's route, gated row by row."""
+    from pcx_torch.bandstructure import bandgap
+    from pcx_torch.io import BandLibrary
+    from pcx_torch.lattices import k_path
+    from pcx_torch.metrics import load_jsonl
+    from pcx_torch.solvers.lobpcg import Status
+    n_k = k_path("sc_curv").shape[0]
+    with tempfile.TemporaryDirectory(prefix="pcx_pseudo_") as out:
+        metrics = os.path.join(out, "metrics.jsonl")
+        print(f"phase pseudo-sweep: bandgap sc_curv {CROSSDOF} N={n} "
+              f"complex64 rr_gram='pallas' indices {PSEUDO_INDICES}",
+              flush=True)
+        log = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(log):
+            err = bandgap(n=n, lattice="sc_curv", diel_type=CROSSDOF,
+                          nev=NEV, dtype=torch.complex64, device=dev,
+                          output_dir=out, metrics_path=metrics,
+                          indices=PSEUDO_INDICES, verbose=True,
+                          solver_opts={"rr_gram": "pallas"})
+        wall = time.time() - t0
+        for line in log.getvalue().splitlines():   # rejections and retries
+            print(f"    {line}", flush=True)
+        recs = load_jsonl(metrics) if os.path.exists(metrics) else []
+        if err or len(recs) != len(PSEUDO_INDICES):
+            fail(f"pseudo-sweep: failed indices {err}, {len(recs)} records")
+        lib = BandLibrary(os.path.join(out, CROSSDOF, "bandgap_sc_curv.json"),
+                          "sc_curv", n, n_k, NEV)
+        for i, rec in zip(PSEUDO_INDICES, recs):
+            row = np.array(lib.frequencies[i])
+            dev_i = float(np.abs(np.array(rec["omega_pnt"])
+                                 - np.array(rec["omega"])).max())
+            gold = (float(np.abs(row - golden_row("sc_curv", n, i,
+                                                  CROSSDOF)).max())
+                    if golden else float("nan"))
+            print(f"  k={i}: status {Status(rec['status']).name} iters "
+                  f"{rec['iterations']} wall {rec['wall_s']:.3f} s "
+                  f"({1e3 * rec['wall_s'] / max(rec['iterations'], 1):.1f} "
+                  f"ms/iter) max|omega-omega_re| {dev_i:.3e} "
+                  f"max|omega - golden| {gold:.3e}", flush=True)
+            if rec["status"] not in (Status.CONVERGED, Status.FLOOR):
+                fail(f"pseudo-sweep row {i}: status "
+                     f"{Status(rec['status']).name}")
+            if not np.array_equal(row, np.array(rec["omega"])):
+                fail(f"pseudo-sweep row {i}: the library read back differs "
+                     f"from the solve's frequencies")
+            if not dev_i <= SPURIOUS_TOL:
+                fail(f"pseudo-sweep row {i}: spurious ({dev_i:.3e})")
+            if golden and not gold <= GOLDEN_TOL:
+                fail(f"pseudo-sweep row {i}: {gold:.3e} from the golden row")
+        print(f"  sweep of {len(PSEUDO_INDICES)} points: {wall:.3f} s, "
+              f"{wall / len(PSEUDO_INDICES):.3f} s/k-point", flush=True)
+
+
+def phase_variants(dev, n: int = N, golden: bool = True) -> None:
+    """Phase 11, the single cold solves: the trivial Hermitian-tensor
+    dielectric with softlock and descent, the chiral point of phase 7 with
+    nolock."""
+    from pcx_torch import lattices
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    print(f"phase variants: sc_curv N={n} single cold solves", flush=True)
+    cfg = ProblemConfig(n=n, lattice="sc_curv", nev=NEV, diel_type=TRIVIAL)
+    diel = None
+    for solver in ("softlock", "descent"):
+        kps = KPointSolver(cfg, device=dev, dtype=torch.complex64,
+                           solver=solver, diel=diel)
+        diel = kps.diel
+        alpha = lattices.k_path("sc_curv")[TRIVIAL_INDEX]
+        res = kps.solve(alpha, seed=TRIVIAL_INDEX, validate_result=False)
+        why = gate(kps, alpha, res,
+                   golden_row("sc_curv", n, TRIVIAL_INDEX, TRIVIAL)
+                   if golden else None,
+                   f"{TRIVIAL} k={TRIVIAL_INDEX} {solver}",
+                   maxiter_ok=solver != "softlock")
+        if why:
+            fail(f"{TRIVIAL} {solver}: {why}")
+        del kps, res
+    kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=NEV),
+                       device=dev, dtype=torch.complex64, solver="nolock")
+    alpha = np.array([np.pi, 0.0, 0.0])
+    res = kps.solve(alpha, seed=0, validate_result=False)
+    why = gate(kps, alpha, res, golden_row("sc_curv", n, 19) if golden
+               else None, "chiral k=19 nolock", maxiter_ok=True)
+    if why:
+        fail(f"chiral nolock: {why}")
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -522,6 +696,31 @@ def main() -> None:
         rec["launches"] = counts[rec["name"]]
     if not all(rec["launches"] > 0 for rec in kernels):
         fail(f"a kernel of the path never launched in the sweep: {counts}")
+
+    diel_ms = phase_pseudo_operator(gen, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kmod.reset_launches()
+    phase_pseudo_sweep(dev)
+    counts = kmod.launches()
+    print(f"phase launches: {counts} in the pseudochiral sweep of phase 11 "
+          f"(rr_gram='pallas'); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    for rec in kernels:
+        rec["launches_pseudo_sweep"] = counts[rec["name"]]
+    if not all(rec["launches_pseudo_sweep"] > 0 for rec in kernels):
+        fail(f"a kernel never launched in the pseudochiral sweep: {counts}")
+    kmod.reset_launches()
+    phase_variants(dev)
+    counts = kmod.launches()
+    print(f"phase launches: {counts} in the single solves of phase 11 "
+          f"(rr_gram='xla'); peak device memory of phase 11 "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; eps^-1 "
+          f"ms per 16-column apply {diel_ms}", flush=True)
+    if not (counts["resid_precond"] and counts["axis_dft"]):
+        fail(f"K1 or K2 never launched in the variants' solves: {counts}")
+    for rec in kernels:
+        rec["launches_variants"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

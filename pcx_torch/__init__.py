@@ -1,8 +1,9 @@
 """pcx_torch — the PyTorch / CUDA port of pcx (Photonic Crystals on XLA).
 
-The single-k-point LOBPCG solve of pcx (``KPointSolver.solve``) on one
-NVIDIA H100: complex64 iterate, complex128 refine and validation, and the
-two Pallas TPU kernels of that path rewritten as CUDA C++ for sm_90a
+The single-k-point LOBPCG solve of pcx (``KPointSolver.solve``) and the
+band sweep (``bandgap``) on one NVIDIA H100, for every dielectric of pcx:
+complex64 iterate, complex128 refine and validation, and the three Pallas
+TPU kernels of that path rewritten as CUDA C++ for sm_90a
 (``pcx_torch.kernels``).  The JAX package ``pcx`` stays the reference; this
 package imports torch and numpy and never ``jax`` or ``pcx``.
 

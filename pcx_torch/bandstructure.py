@@ -9,8 +9,14 @@ gate (reference: eigen_1p, numerical_experiments.py:209-247), and the
 checkpointed, resumable, warm-started sweep over a Brillouin-zone path
 (reference: bandgap, numerical_experiments.py:313-496).
 
+Every dielectric of ``pcx_torch.operators.dielectric`` runs through these
+entry points (``diel_type``: chiral, pseudochiral_trivial,
+pseudochiral_crossdof), and the production solver has its ``nolock`` and
+``descent`` variants (``solver=``).
+
 On a complex64 solve the operator's DFT passes run kernel K2 and the
-residual/preconditioner pass runs kernel K1; with
+residual/preconditioner pass runs kernel K1, whatever the dielectric and
+the variant; with
 ``solver_opts={"rr_gram": "pallas"}`` the Rayleigh-Ritz Gram runs kernel K3
 (any dtype).  On CPU tensors the wrappers take their plain PyTorch
 versions.  The refine runs in complex128 with
@@ -37,7 +43,7 @@ from pcx_torch.operators import maxwell
 from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.blocks import h_block
 from pcx_torch.operators.dft import dft_mats
-from pcx_torch.operators.dielectric import DielectricOp, chiral_op
+from pcx_torch.operators import dielectric as diel_mod
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.lobpcg import Status
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
@@ -47,10 +53,17 @@ from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, norms,
 
 SOLVER_OPTS = ("ortho_passes", "refresh_every", "floor_patience",
                "col_patience", "lam_tol", "lam_patience", "lam_res_tol",
-               "rr_gram")
+               "rr_gram", "use_p")
 # Keys of solver_opts that KPointSolver itself takes and pops before the
 # rest reach the solver (pcx/bandstructure.py:238, 255-257).
 SOLVE_OPTS = ("warm_maxiter", "doom_check", "doom_tol")
+
+# Solver variants (reference eigen_1p's ``solver`` argument,
+# numerical_experiments.py:209): the production soft-locking LOBPCG, the same
+# without locking, and without the conjugate block.  The others the JAX
+# package knows are not ported yet (ROADMAP queue 1, P8).
+SOLVERS = ("softlock", "nolock", "descent")
+SOLVERS_UNPORTED = ("mixed", "davidson", "jd")
 
 # Doom-check marks of a warm solve: the first at 24 iterations, then every
 # 40 (the JAX segmented solve's boundaries, bandstructure.py:1469-1503).
@@ -97,19 +110,26 @@ class KPointSolver:
     ``doom_check`` (default True) bails a warm solve whose frequency-error
     bound stalls above ``doom_tol`` (default ``lam_res_tol``, else 1e-3);
     see pcx KPointSolver.__init__ for the measured rationale of both.
-    ``diel``/``parts`` replace the dielectric and the 1-D symbol parts built
-    from ``cfg`` (see ``from_arrays``).
+    ``solver``: ``"softlock"`` (production), ``"nolock"`` (every column
+    stays active) or ``"descent"`` (no conjugate block: ``use_p=False``),
+    as the JAX package's pair-layout route serves them
+    (pcx/bandstructure.py:259, 312-316).
+    ``diel``/``parts`` replace the dielectric built from ``cfg`` by
+    ``dielectric.build`` and the 1-D symbol parts (see ``from_arrays``).
     """
 
     def __init__(self, cfg: ProblemConfig, *, device, dtype: torch.dtype,
                  tol: float = TOL, maxiter: int = MAXITER,
+                 solver: str = "softlock",
                  solver_opts: Optional[dict] = None,
-                 diel: Optional[DielectricOp] = None,
+                 diel: Optional[diel_mod.DielectricOp] = None,
                  parts: Optional[sym.SymbolParts] = None):
-        if cfg.diel_type != TYPE_CHIRAL:
+        if solver in SOLVERS_UNPORTED:
             raise NotImplementedError(
-                f"pcx_torch ports the chiral dielectric only, not "
-                f"{cfg.diel_type!r}")
+                f"solver {solver!r} is not ported yet (ROADMAP queue 1, P8); "
+                f"ported: {SOLVERS}")
+        if solver not in SOLVERS:
+            raise ValueError(f"unknown solver {solver!r}")
         if dtype not in (torch.complex64, torch.complex128):
             raise ValueError(f"dtype must be complex64 or complex128, "
                              f"got {dtype}")
@@ -135,25 +155,33 @@ class KPointSolver:
             opts.setdefault("ortho_passes", 2)
             opts.setdefault("refresh_every", 8)
             opts.setdefault("floor_patience", 6)
+        if solver == "descent":
+            opts.setdefault("use_p", False)
         self.solver_opts = opts
+        self.locking = solver != "nolock"
         self.last_doom = None   # (it, worst bound) of the last doom bail
         ct = (lattices.ct_matrix(cfg.lattice) if cfg.lattice else np.eye(3))
         self.parts = parts if parts is not None else sym.symbol_parts(
             cfg.n, cfg.k, ct, cfg.scal, self.device)
-        self.diel = diel if diel is not None else chiral_op(
-            cfg.n, cfg.lattice, self.device,
-            eps=float(cfg.eps_opt) if cfg.eps_opt else 0.0)
+        self.diel = diel if diel is not None else diel_mod.build(
+            cfg.diel_type, cfg.n, cfg.lattice, self.device,
+            eps_opt=cfg.eps_opt, k=cfg.k)
         self.dft = dft_mats(cfg.n, dtype, self.device)
 
     @classmethod
-    def from_arrays(cls, cfg: ProblemConfig, *, scale, d1, d0, ct, device,
-                    dtype: torch.dtype, **kw) -> "KPointSolver":
-        """A solver on state given as numpy arrays — the ε⁻¹ scale of a
-        chiral dielectric and the 1-D symbol parts (d1, d0, ct), e.g. taken
-        from the JAX package's KPointSolver — instead of the geometry and
-        stencils (see ``pcx_torch.interop``)."""
-        return cls(cfg, device=device, dtype=dtype,
-                   diel=interop.dielectric(scale, device),
+    def from_arrays(cls, cfg: ProblemConfig, *, d1, d0, ct, device,
+                    dtype: torch.dtype, scale=None,
+                    diel: Optional[diel_mod.DielectricOp] = None,
+                    **kw) -> "KPointSolver":
+        """A solver on state given as numpy arrays, e.g. taken from the JAX
+        package's KPointSolver, instead of the geometry and stencils: the
+        1-D symbol parts (d1, d0, ct) and either the ε⁻¹ ``scale`` of a
+        chiral dielectric or a ``diel`` from ``interop.dielectric_from``."""
+        if (scale is None) == (diel is None):
+            raise ValueError("pass exactly one of scale= and diel=")
+        if diel is None:
+            diel = interop.dielectric(scale, device)
+        return cls(cfg, device=device, dtype=dtype, diel=diel,
                    parts=interop.symbol_parts(d1, d0, ct, device), **kw)
 
     def block_width(self, alpha) -> int:
@@ -271,7 +299,8 @@ class KPointSolver:
                  if warm and self.warm_maxiter > 0 else None)
         monitor = self._doom_monitor() if warm and self.doom_check else None
         res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                            maxiter=self.maxiter, rp_fused=rp, limit=limit,
+                            maxiter=self.maxiter, locking=self.locking,
+                            rp_fused=rp, limit=limit,
                             monitor=monitor, **self.solver_opts)
         self._sync()
         wall = time.time() - t0
@@ -342,13 +371,15 @@ class KPointSolver:
 def eigen_1p(n: int, lattice: str, alpha, *, device,
              dtype: torch.dtype = torch.complex128,
              diel_type: str = TYPE_CHIRAL, nev: int = NEV, tol: float = TOL,
-             maxiter: int = MAXITER, seed: int = 0, eps_opt: int = 0,
+             maxiter: int = MAXITER, seed: int = 0,
+             solver: str = "softlock", eps_opt: int = 0,
              verbose: bool = True, **solver_kw) -> EigenResult:
-    """Single-k-point solve (reference: numerical_experiments.py:209-247)."""
+    """Single-k-point solve (reference: numerical_experiments.py:209-247).
+    ``solver`` selects the variant: softlock, nolock or descent."""
     cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type, nev=nev,
                         eps_opt=eps_opt)
     kps = KPointSolver(cfg, device=device, dtype=dtype, tol=tol,
-                       maxiter=maxiter, **solver_kw)
+                       maxiter=maxiter, solver=solver, **solver_kw)
     result = kps.solve(np.asarray(alpha, dtype=float), seed=seed,
                        verbose=verbose)
     if verbose:
@@ -393,7 +424,8 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
     schema, except: ``device`` (default ``"cuda"``) and a torch ``dtype``;
     no ``k_batch``/``mesh`` (the sweep is serial on one device).
     ``solver_opts`` is the JAX package's dict (e.g.
-    ``{"rr_gram": "pallas"}``); ``solver_kw`` goes to ``KPointSolver``.
+    ``{"rr_gram": "pallas"}``); ``solver_kw`` goes to ``KPointSolver``
+    (e.g. ``{"solver": "nolock"}``).
     """
     cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type,
                         eps_opt=eps_opt, nev=nev)

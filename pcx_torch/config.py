@@ -34,8 +34,10 @@ FCC = "fcc"
 
 ALL_LATTICES = (SC_F1, SC_F2, SC_C, BCC_SG, BCC_DG, FCC)
 
-# The dielectric type this port carries (reference: paper_2/environment.py:43).
+# Dielectric ("chiroptical") types (reference: paper_2/environment.py:43-46).
 TYPE_CHIRAL = "chiral"
+TYPE_PSEUDO_TRIVIAL = "pseudochiral_trivial"
+TYPE_PSEUDO_CROSSDOF = "pseudochiral_crossdof"
 
 # Isotropic dielectric constants per lattice
 # (reference: paper_2/environment.py:49).
@@ -48,6 +50,19 @@ CHIRAL_EPS_EG = {
     FCC: 13.0,
 }
 
+# Hermitian positive-definite 3x3 tensors stored as 6 components
+# (d11, d22, d33, d12, d13, d23) (reference: paper_2/environment.py:52-55).
+PSEUDOCHIRAL_EPS_LOC = [
+    np.array([(1 + 0.875**2) ** 0.5, (1 + 0.875**2) ** 0.5, 1.0,
+              -1j * 0.875, 0.0, 0.0]),
+    np.array([(1 + 0.875**2) ** 0.5, 1.0, (1 + 0.875**2) ** 0.5,
+              0.0, 1j * 0.875, 0.0]),
+    np.array([1.0346, 0.5059, 0.2595,
+              -0.0163 - 0.2319j, 0.027 + 0.0827j, -0.2743 - 0.0076j]),
+    np.array([3.0, 3.0, 3.0,
+              np.sqrt(3) + 1j, 1j, np.sqrt(2) * (1 + 1j)]) / 5.0,
+]
+
 
 @dataclasses.dataclass(frozen=True)
 class ProblemConfig:
@@ -56,7 +71,8 @@ class ProblemConfig:
     n: int                                   # Grid size N (DoFs = 3N^3).
     lattice: str = SC_C                      # Lattice flag name.
     diel_type: str = TYPE_CHIRAL             # Dielectric operator type.
-    eps_opt: int = 0                         # Chiral eps override (0: lattice's).
+    eps_opt: int = 0                         # Pseudochiral preset index; for
+                                             # chiral the eps (0: lattice's).
     k: int = K                               # Stencil half-width.
     scal: float = SCAL                       # Lattice scaling constant.
     nev: int = NEV

@@ -1,11 +1,13 @@
-"""Geometry: material 'flag' predicates and the edge-DoF mask on the
-staggered grid.
+"""Geometry: material 'flag' predicates and the edge-DoF and cell-centre
+masks on the staggered grid.
 
-A numpy copy of the flag predicates and ``edge_mask`` of ``pcx/geometry.py``
-(the port never imports ``pcx``).  The material region is a boolean
-(3, N, N, N) mask, one bool per Yee edge DoF, axis order (component, i, j,
-k).  There is no native engine and no on-disk cache: the numpy build takes
-seconds at N=120 and runs once per solver.
+A numpy copy of the flag predicates, ``edge_mask`` and ``volume_mask`` of
+``pcx/geometry.py`` (the port never imports ``pcx``).  The material region
+is a boolean (3, N, N, N) mask, one bool per Yee edge DoF, axis order
+(component, i, j, k), and a boolean (N, N, N) mask of cell centres for the
+off-diagonal entries of a tensor dielectric.  There is no native engine and
+no on-disk cache: the numpy build takes seconds at N=120 and runs once per
+solver.
 
 Flag predicates re-derive the geometric definitions of
 paper_2/dielectric.py:157-261 on broadcast coordinate grids.
@@ -13,7 +15,7 @@ paper_2/dielectric.py:157-261 on broadcast coordinate grids.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -39,6 +41,15 @@ def edge_coords(n: int, component: int) -> Tuple[np.ndarray, np.ndarray, np.ndar
     x = _axis_coords(n, component == 0).reshape(n, 1, 1)
     y = _axis_coords(n, component == 1).reshape(1, n, 1)
     z = _axis_coords(n, component == 2).reshape(1, 1, n)
+    return x, y, z
+
+
+def volume_coords(n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Cell-center coordinates, +1/2 offset on all axes
+    (reference: dielectric.py:119-130)."""
+    x = _axis_coords(n, True).reshape(n, 1, 1)
+    y = _axis_coords(n, True).reshape(1, n, 1)
+    z = _axis_coords(n, True).reshape(1, 1, n)
     return x, y, z
 
 
@@ -150,11 +161,31 @@ FLAG_REGISTRY: Dict[str, Callable] = {
 }
 
 
-def edge_mask(n: int, lattice: str) -> np.ndarray:
-    """Boolean (3, N, N, N) mask of material edge DoFs."""
+def edge_mask(n: int, lattice: Optional[str],
+              rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Boolean (3, N, N, N) mask of material edge DoFs.
+
+    ``lattice=None`` produces the reference's random fake (~37.2% fill,
+    dielectric.py:74-77) for flag-less smoke runs.
+    """
+    if lattice is None:
+        rng = rng or np.random.default_rng(0)
+        return rng.random((3, n, n, n)) < 0.372
     ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
     flag = FLAG_REGISTRY[lattice]
     mask = np.empty((3, n, n, n), dtype=bool)
     for c in range(3):
         mask[c] = flag(*_transform(edge_coords(n, c), ct_inv_t))
     return mask
+
+
+def volume_mask(n: int, lattice: Optional[str],
+                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Boolean (N, N, N) mask of material cell centers (``lattice=None``:
+    the random fake, as ``edge_mask``)."""
+    if lattice is None:
+        rng = rng or np.random.default_rng(1)
+        return rng.random((n, n, n)) < 0.372
+    ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
+    mask = FLAG_REGISTRY[lattice](*_transform(volume_coords(n), ct_inv_t))
+    return np.broadcast_to(mask, (n, n, n)).copy()

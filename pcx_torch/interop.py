@@ -4,7 +4,9 @@ Turns the arrays a ``pcx`` solver holds into the port's objects, so that
 both packages can be run on identical state (tests), independently of
 geometry parity:
 
-* the chiral ε⁻¹ scale (``DielectricOp.params[0]`` in pcx);
+* a dielectric, from the ``name``, ``params`` and ``meta`` of a pcx
+  ``DielectricOp`` (``dielectric_from``), or only the chiral ε⁻¹ scale
+  (``dielectric``);
 * the 1-D symbol parts d1, d0 and ct (``KPointSolver._f64`` in pcx, there
   as (re, im) float64 pairs);
 * the DFT matrices (``dft.dft_mats``);
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 
 from pcx_torch.operators.dft import DFTMats
-from pcx_torch.operators.dielectric import DielectricOp
+from pcx_torch.operators.dielectric import (CrossDofOp, DielectricOp,
+                                            HermBlockOp, ScaleOp,
+                                            identity_op)
 from pcx_torch.operators.symbols import SymbolParts
 
 
@@ -33,8 +37,32 @@ def _complex(a) -> np.ndarray:
 
 def dielectric(scale, device) -> DielectricOp:
     """Chiral dielectric from its (3, N, N, N) real ε⁻¹ scale."""
-    return DielectricOp(torch.tensor(np.asarray(scale, np.float64),
-                                     device=device))
+    return dielectric_from("chiral", (scale,), (), device)
+
+
+def dielectric_from(name: str, params, meta, device) -> DielectricOp:
+    """The port's operator for a pcx ``DielectricOp``, by its ``name``, from
+    its ``params`` as numpy arrays and its ``meta``:
+
+    * ``chiral`` / ``scalar_field``: ``params = (scale,)``;
+    * ``pseudochiral_trivial``: ``params = (diag, sdiag)``, sdiag complex
+      or a (re, im) pair;
+    * ``pseudochiral_crossdof``: ``params = (diag, masks)`` and
+      ``meta = (("sten", ...), ("eps", (e3, e4, e5)))``;
+    * ``identity``: no params.
+    """
+    real = lambda a: np.asarray(a, np.float64)
+    if name == "identity":
+        return identity_op()
+    if name in ("chiral", "scalar_field"):
+        return ScaleOp(real(params[0]), device, name=name)
+    if name == "pseudochiral_trivial":
+        return HermBlockOp(real(params[0]), _complex(params[1]), device)
+    if name == "pseudochiral_crossdof":
+        meta = dict(meta)
+        return CrossDofOp(real(params[0]), real(params[1]), meta["sten"],
+                          meta["eps"], device)
+    raise KeyError(f"no port operator for dielectric {name!r}")
 
 
 def symbol_parts(d1, d0, ct, device) -> SymbolParts:

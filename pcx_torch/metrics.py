@@ -1,7 +1,7 @@
 """Structured metrics & logging.
 
 A copy of ``SolveRecord`` and ``RunLogger`` from ``pcx/metrics.py`` (which
-loads JAX through ``pcx.utils``).
+loads JAX through ``pcx.utils``), with one more field, ``omega_pnt``.
 
 The reference logs with ANSI-colored prints and persists per-solve
 ``info = [iterations, total_time]`` arrays plus optional residual histories
@@ -34,7 +34,9 @@ class SolveRecord:
     iterations: int
     wall_s: float
     status: int
-    omega: Optional[list] = None
+    omega: Optional[list] = None       # recomputed frequencies
+    omega_pnt: Optional[list] = None   # penalized ones: the spurious gate
+                                       # bounds |omega_pnt - omega| by 1e-3
     residual_tail: Optional[list] = None
     timestamp: float = 0.0
 
@@ -73,6 +75,8 @@ class RunLogger:
             status=int(result.status),
             omega=(list(map(float, result.omega_re))
                    if result.omega_re is not None else None),
+            omega_pnt=(list(map(float, result.omega))
+                       if result.omega is not None else None),
         )
 
 

@@ -41,10 +41,11 @@ class _Tracker:
     counter, all in the iterate's real dtype (body_fun, lobpcg_rs.py:246-355).
     """
 
-    def __init__(self, m, nev, tol, maxiter, floor_patience,
+    def __init__(self, m, nev, tol, maxiter, locking, floor_patience,
                  col_patience, lam_tol, lam_patience, lam_res_tol,
                  noise_floor, f):
         self.f = f
+        self.locking = locking
         self.nev, self.tol = nev, f(tol)
         self.floor_patience, self.col_patience = floor_patience, col_patience
         self.lam_tol, self.lam_patience = lam_tol, lam_patience
@@ -102,7 +103,8 @@ class _Tracker:
                            | ((it > 3) & (idle > 4 * cp + 4)))
         else:
             col_floored = np.zeros(res.shape, bool)
-        active = (res > self.tol) & ~col_floored
+        active = ((res > self.tol) & ~col_floored if self.locking
+                  else np.ones(res.shape, bool))
 
         ms = MAXSTAGNITER
         stagn_ref = np.maximum(first_rec, f(10.0) * floor_gate)
@@ -130,9 +132,11 @@ def lobpcg_sep_rs(
     *,
     tol: float = TOL,
     maxiter: int = MAXITER,
+    locking: bool = True,
     ortho_passes: int = 2,
     refresh_every: int = 5,
     floor_patience: int = 9,
+    use_p: bool = True,
     rp_fused=None,
     col_patience: int = 0,
     lam_tol: float = 0.0,
@@ -147,6 +151,11 @@ def lobpcg_sep_rs(
     ``h_func``/``p_func`` map a block shaped like ``x0`` (m, ...) to H x and
     to the preconditioned block.  The options mean what they mean in
     ``pcx.solvers.lobpcg_rs.rs_solver_parts`` (see its docstring).
+
+    ``locking=False`` (the ``nolock`` variant) gives every column a W and P
+    direction in every iteration, whatever its residual or per-column floor
+    lock; ``use_p=False`` (the ``descent`` variant, reference descent_sep,
+    paper_2/lobpcg.py:847-974) keeps the conjugate block P out of the basis.
 
     ``rp_fused``: optional ``(x, hx, lam) -> (w_raw, sumsq)`` on flat (m, D)
     blocks, replacing the residual / column-norm / preconditioner chain by
@@ -214,7 +223,7 @@ def lobpcg_sep_rs(
     # valid-column mask of X in sorted position (zero columns trail)
     x_ok = (arange_m < keep0.sum()).to(rdtype)
 
-    trk = _Tracker(m, nev, tol, maxiter, floor_patience,
+    trk = _Tracker(m, nev, tol, maxiter, locking, floor_patience,
                    col_patience, lam_tol, lam_patience, lam_res_tol,
                    noise_floor, _NP_REAL[rdtype])
     it = 0
@@ -249,7 +258,7 @@ def lobpcg_sep_rs(
                                          passes=ortho_passes)
         hw = hf(w)
 
-        p_act = sel * (1.0 if it > 0 else 0.0)
+        p_act = sel * (1.0 if it > 0 and use_p else 0.0)
         pc = p_act[:, None]
         pn = rr.colnorms(pc * p)
         inv_pn = (1.0 / pn.clamp(min=tiny))[:, None]

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, a small
 complex64 solve and sweep through the kernels against the same on the CPU,
-and a complex128 sweep on the card against a committed library.
+a complex128 sweep on the card against a committed library, and the
+Hermitian-tensor dielectrics on the card (complex64 against complex128
+applies, a complex128 cross-DoF sweep against the CPU's).
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -23,6 +25,7 @@ from pcx_torch.kernels import axis_dft, gram9, resid_precond
 from pcx_torch.kernels.axis_dft import axis_dft_plain
 from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
+from pcx_torch.operators import dielectric
 from pcx_torch.operators.dft import dft_mats
 
 pytestmark = pytest.mark.gpu
@@ -168,8 +171,8 @@ def _sweep(tmp_path, name, device, **kw):
     out = str(tmp_path / name)
     err = bs.bandgap(output_dir=out, verbose=False, device=device, **kw)
     assert err == []
-    with open(os.path.join(out, "chiral", f"bandgap_{kw['lattice']}.json")) \
-            as f:
+    with open(os.path.join(out, kw.get("diel_type", "chiral"),
+                           f"bandgap_{kw['lattice']}.json")) as f:
         return json.load(f)
 
 
@@ -202,3 +205,51 @@ def test_complex128_sweep_reproduces_committed_library(tmp_path):
     got = np.array(lib["sc_flat1_32_frequencies"])
     np.testing.assert_allclose(got, np.array(ref.frequencies), rtol=0,
                                atol=1e-8)
+
+
+@pytest.mark.parametrize("diel_type,eps_opt,k", [
+    ("pseudochiral_trivial", 0, 1), ("pseudochiral_trivial", 3, 1),
+    ("pseudochiral_crossdof", 0, 1), ("pseudochiral_crossdof", 3, 1),
+    ("pseudochiral_crossdof", 2, 2)])
+def test_pseudochiral_apply_complex64_matches_complex128_on_cuda(
+        diel_type, eps_opt, k):
+    """The Hermitian-tensor eps^{-1} applies at N=32 on the card: the
+    complex64 form (float32 masks and diagonals, Python-scalar eps entries)
+    stays complex64 and agrees with the complex128 form to float32
+    rounding, and the complex128 form agrees with the CPU's."""
+    dev = _cuda()
+    n = 32
+    op = dielectric.build(diel_type, n, "sc_curv", dev, eps_opt=eps_opt, k=k)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.randn((4, 3, n, n, n), generator=gen, device=dev,
+                    dtype=torch.complex128)
+    y64 = op(x)
+    y32 = op(x.to(torch.complex64))
+    assert y32.dtype == torch.complex64 and y64.dtype == torch.complex128
+    scale = float(y64.abs().max())
+    assert float((y32.to(torch.complex128) - y64).abs().max()) <= 2e-6 * scale
+    cpu = dielectric.build(diel_type, n, "sc_curv", "cpu", eps_opt=eps_opt,
+                           k=k)
+    torch.testing.assert_close(y64.cpu(), cpu(x.cpu()), rtol=0.0,
+                               atol=1e-13 * scale)
+    # <x, M y> = conj <y, M x>
+    y = torch.randn_like(x)
+    a, b = torch.vdot(x.flatten(), op(y).flatten()), torch.vdot(
+        y.flatten(), y64.flatten())
+    assert abs(a - b.conj()) <= 1e-12 * abs(a)
+
+
+def test_complex128_crossdof_sweep_on_cuda_matches_cpu(tmp_path):
+    """bandgap of the cross-DoF dielectric at N=32, complex128, rows 1-2
+    (one cold point, one warm): CONVERGED complex128 solves on the card and
+    on the CPU agree to 1e-9."""
+    dev = _cuda()
+    kw = dict(n=32, lattice="sc_curv", diel_type="pseudochiral_crossdof",
+              nev=6, gap=5, indices=[1, 2], dtype=torch.complex128)
+    lib_gpu = _sweep(tmp_path, "gpu", dev, **kw)
+    lib_cpu = _sweep(tmp_path, "cpu", "cpu", **kw)
+    key = "sc_curv_32_frequencies"
+    np.testing.assert_allclose(np.array(lib_gpu[key][1:3]),
+                               np.array(lib_cpu[key][1:3]), rtol=0,
+                               atol=1e-9)

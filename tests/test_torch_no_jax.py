@@ -20,7 +20,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pcx"))
 missing = sorted({"pcx_torch.io", "pcx_torch.metrics",
-                  "pcx_torch.kernels.gram9"} - set(names))
+                  "pcx_torch.kernels.gram9", "pcx_torch.operators.dielectric",
+                  "pcx_torch.geometry", "pcx_torch.interop"} - set(names))
 print(len(names), bad, missing)
 """
 

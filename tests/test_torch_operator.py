@@ -20,7 +20,8 @@ from pcx_torch.operators import maxwell as tmax
 from pcx_torch.operators import symbols as tsym
 from pcx_torch.operators.blocks import a_block, h_block
 from pcx_torch.operators.dft import dft_mats
-from pcx_torch.operators.dielectric import DielectricOp, chiral_op
+from pcx_torch.operators import dielectric as tdiel
+from pcx_torch.operators.dielectric import chiral_op, identity_op
 
 # Symbols are closed-form elementwise products of the same 1-D parts:
 # agreement to a few ulp (1e-13 relative).  The operator chains three
@@ -109,6 +110,38 @@ def test_ama_bb_matches_rs(lattice, use_dft_mats):
     assert _rel(got.numpy(), want) <= OP_RTOL
 
 
+@pytest.mark.parametrize("use_dft_mats", [False, True])
+@pytest.mark.parametrize("diel_type,eps_opt", [
+    ("pseudochiral_trivial", 0), ("pseudochiral_trivial", 3),
+    ("pseudochiral_crossdof", 0), ("pseudochiral_crossdof", 2)])
+def test_ama_bb_pseudochiral_matches_rs(diel_type, eps_opt, use_dft_mats):
+    """The operator around a Hermitian-tensor dielectric, the JAX one
+    carried across by name, against the pair operator (which applies it
+    through ``rs.diel_apply_p``)."""
+    n, lattice = 8, "sc_curv"
+    rng = np.random.default_rng(7)
+    alpha = _alpha(4)
+    (shift, _), pnt = set_relaxation(alpha)
+    x = _block(rng, (3, 3, n, n, n))
+    jdiel_op = jdiel.build(diel_type, n, lattice, eps_opt=eps_opt)
+    jd_a, (jb_d, jb_s), _ = _jax_symbols(n, lattice, alpha)
+    w = jdft.dft_mats(n, np.complex128)
+    want = _cplx(rs.ama_bb_p(_pair(x), jd_a, jb_d, jb_s, jdiel_op,
+                             _pair(w.fwd), _pair(w.inv), shift=shift))
+
+    parts = interop.symbol_parts(*_parts(n, lattice), device="cpu")
+    d_a = tsym.build_curl(parts, alpha)
+    b = tsym.penalty(d_a, pnt)
+    mats = dft_mats(n, torch.complex128, "cpu") if use_dft_mats else None
+    carried = interop.dielectric_from(
+        jdiel_op.name, [np.asarray(p) for p in jdiel_op.params],
+        jdiel_op.meta, "cpu")
+    native = tdiel.build(diel_type, n, lattice, "cpu", eps_opt=eps_opt)
+    for diel in (carried, native):
+        got = tmax.ama_bb(torch.as_tensor(x), d_a, b, diel, shift, mats)
+        assert _rel(got.numpy(), want) <= OP_RTOL
+
+
 def test_h_block_matches_rs():
     n = 6
     rng = np.random.default_rng(4)
@@ -159,6 +192,16 @@ def test_penalized_operator_hermitian_pd():
     assert np.linalg.eigvalsh((h + h.conj().T) / 2).min() > -1e-10
 
 
+@pytest.mark.parametrize("diel_type", ["pseudochiral_trivial",
+                                       "pseudochiral_crossdof"])
+def test_penalized_operator_hermitian_pd_pseudochiral(diel_type):
+    diel = tdiel.build(diel_type, N, "sc_curv", "cpu", eps_opt=3)
+    d_a, b, _, shift, diel = _problem(diel)
+    h = _dense(lambda v: tmax.ama_bb(v, d_a, b, diel, shift), N)
+    assert np.abs(h - h.conj().T).max() < 1e-10
+    assert np.linalg.eigvalsh((h + h.conj().T) / 2).min() > -1e-10
+
+
 def test_ama_hermitian_psd_with_kernel():
     """A M A^H is Hermitian PSD with the N^3-dimensional divergence
     kernel that the penalty removes."""
@@ -172,8 +215,7 @@ def test_ama_hermitian_psd_with_kernel():
 
 def test_preconditioner_is_exact_inverse():
     """P = (A A^H + pnt B^H B + shift)^{-1} exactly in vacuum (M = I)."""
-    vac = DielectricOp(torch.ones((3, N, N, N), dtype=torch.float64))
-    d_a, b, inv, shift, diel = _problem(vac)
+    d_a, b, inv, shift, diel = _problem(identity_op())
     h = _dense(lambda v: tmax.ama_bb(v, d_a, b, diel, shift), N)
     p = _dense(lambda v: h_block(v, inv), N)
     np.testing.assert_allclose(p @ h, np.eye(3 * N ** 3), atol=1e-8)

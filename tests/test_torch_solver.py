@@ -14,6 +14,7 @@ from pcx import boundary
 from pcx import validate as jval
 from pcx.bandstructure import KPointSolver as JaxSolver
 from pcx.config import ProblemConfig as JaxConfig
+from pcx.operators import dielectric as jdiel
 from pcx.operators import rs
 from pcx.solvers import lobpcg as jlob
 from pcx.solvers import rayleigh_ritz as jrr
@@ -25,6 +26,11 @@ from pcx_torch.operators import maxwell as tmax
 from pcx_torch.operators import symbols as tsym
 from pcx_torch.solvers import lobpcg as tlob
 from pcx_torch.solvers import rayleigh_ritz as trr
+
+# Every parallel test worker imports this file.  The problems here are
+# small, so two intra-op threads per process do; the default (one per core
+# in each worker) oversubscribes the cores several times over.
+torch.set_num_threads(min(torch.get_num_threads(), 2))
 
 # Dense algebra in complex128 / f64 on both sides, other summation order.
 ALG_TOL = 1e-12
@@ -142,17 +148,29 @@ def test_eigh_split_and_pencil_match_embeddings(rng):
 
 
 def _pair_solvers(lattice, n, nev, jax_dtype, torch_dtype, jax_kw=None,
-                  torch_opts=None, **kw):
-    cfg = JaxConfig(n=n, lattice=lattice, nev=nev)
+                  torch_opts=None, diel_type="chiral", eps_opt=0, **kw):
+    """A JAX pair-layout solver and a port solver on its state.  ``kw``
+    (tol, maxiter, solver) goes to both."""
+    cfg = JaxConfig(n=n, lattice=lattice, nev=nev, diel_type=diel_type,
+                    eps_opt=eps_opt)
     js = JaxSolver(cfg, dtype=jax_dtype, solver_impl="rs",
                    real_boundary=True, refine=False, **(jax_kw or {}), **kw)
     f = js._f64
     # The JAX one-shot CPU program applies no warm cap and no doom check.
     opts = {"warm_maxiter": 0, "doom_check": False, **(torch_opts or {})}
+    if diel_type == "chiral":
+        diel_kw = {"scale": np.asarray(js.diel.params[0])}
+    else:
+        # the same dielectric as numpy (the solver's own params are in its
+        # real-boundary encoding), carried across by name
+        jop = jdiel.build(diel_type, n, lattice, eps_opt=eps_opt)
+        diel_kw = {"diel": interop.dielectric_from(jop.name, jop.params,
+                                                   jop.meta, "cpu")}
     ts = KPointSolver.from_arrays(
-        ProblemConfig(n=n, lattice=lattice, nev=nev),
-        scale=np.asarray(js.diel.params[0]), d1=f["d1"], d0=f["d0"],
-        ct=f["ct"], device="cpu", dtype=torch_dtype, solver_opts=opts, **kw)
+        ProblemConfig(n=n, lattice=lattice, nev=nev, diel_type=diel_type,
+                      eps_opt=eps_opt),
+        d1=f["d1"], d0=f["d0"], ct=f["ct"], device="cpu", dtype=torch_dtype,
+        solver_opts=opts, **diel_kw, **kw)
     return js, ts
 
 
@@ -185,6 +203,90 @@ def test_complex128_solve_matches_pcx(lattice):
     # Ritz vectors: 1e-8 on frequencies
     np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=1e-8)
     assert not rt.report.spurious
+
+
+@pytest.mark.parametrize("diel_type,eps_opt", [
+    ("pseudochiral_crossdof", 3), ("pseudochiral_trivial", 2)])
+def test_complex128_pseudochiral_solve_matches_pcx(diel_type, eps_opt):
+    """The Hermitian-tensor dielectrics through the production solver,
+    against the JAX pair-layout solver (``rs.diel_apply_p``) from the same
+    start; tolerances as test_complex128_solve_matches_pcx."""
+    alpha = np.array([np.pi, 0.2, 0.0])
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex128, torch.complex128,
+                           diel_type=diel_type, eps_opt=eps_opt)
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0))
+    rt = ts.solve(alpha, x0=interop.block(x0, torch.complex128, "cpu"))
+    assert rt.status == rj.status == tlob.Status.CONVERGED
+    assert abs(rt.iterations - rj.iterations) <= 2
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=1e-8)
+    assert not rt.report.spurious
+    # the solver built from the config alone holds the same dielectric
+    native = KPointSolver(ts.cfg, device="cpu", dtype=torch.complex128)
+    assert type(native.diel) is type(ts.diel)
+    for name, buf in ts.diel.named_buffers():
+        assert torch.equal(buf, native.diel.get_buffer(name)), name
+
+
+@pytest.mark.parametrize("solver,diel_type", [
+    ("nolock", "chiral"), ("descent", "chiral"),
+    ("nolock", "pseudochiral_crossdof"), ("descent", "pseudochiral_trivial")])
+def test_solver_variants_match_pcx(solver, diel_type):
+    """``solver="nolock"`` (every column active) and ``"descent"`` (no
+    conjugate block) against the JAX pair-layout route with the same
+    ``solver=``."""
+    alpha = np.array([np.pi, 0.2, 0.0])
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex128, torch.complex128,
+                           diel_type=diel_type, solver=solver)
+    assert ts.locking is js.locking is (solver != "nolock")
+    assert ts.solver_opts.get("use_p", True) is (solver != "descent")
+    assert js.solver_opts.get("use_p", True) is (solver != "descent")
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0))
+    rt = ts.solve(alpha, x0=interop.block(x0, torch.complex128, "cpu"))
+    assert rt.status == rj.status == tlob.Status.CONVERGED
+    assert abs(rt.iterations - rj.iterations) <= 2
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=1e-8)
+    assert not rt.report.spurious
+    # the variants do differ from softlock: descent needs more iterations
+    if solver == "descent":
+        soft = _pair_solvers("sc_curv", 8, 4, jnp.complex128,
+                             torch.complex128, diel_type=diel_type)[1]
+        rs_ = soft.solve(alpha, x0=interop.block(x0, torch.complex128, "cpu"))
+        assert rt.iterations > rs_.iterations
+        np.testing.assert_allclose(rt.omega_re, rs_.omega_re, atol=1e-6)
+
+
+def test_nolock_keeps_every_column_active():
+    """With locking off the tracker's active mask is all ones whatever the
+    residuals and the per-column floor locks; with it on, converged columns
+    drop out."""
+    from pcx_torch.solvers.lobpcg_rs import _Tracker
+    res = np.array([1e-9, 1.0, 1e-9, 0.5])
+    lam = np.array([1.0, 2.0, 3.0, 4.0])
+    args = dict(m=4, nev=2, tol=1e-4, maxiter=10, floor_patience=9,
+                col_patience=3, lam_tol=0.0, lam_patience=3,
+                lam_res_tol=1e-3, noise_floor=1e-12, f=np.float64)
+    _, active = _Tracker(locking=True, **args).update(0, res, lam)
+    assert active.tolist() == [False, True, False, True]
+    _, active = _Tracker(locking=False, **args).update(0, res, lam)
+    assert active.tolist() == [True] * 4
+
+
+def test_eigen_1p_takes_solver_and_diel_type():
+    alpha = np.array([np.pi, 0, 0])
+    base = eigen_1p(8, "sc_curv", alpha, device="cpu", nev=4, verbose=False,
+                    diel_type="pseudochiral_crossdof", eps_opt=1)
+    res = eigen_1p(8, "sc_curv", alpha, device="cpu", nev=4, verbose=False,
+                   diel_type="pseudochiral_crossdof", eps_opt=1,
+                   solver="nolock")
+    assert res.status == base.status == tlob.Status.CONVERGED
+    assert not res.report.spurious
+    np.testing.assert_allclose(res.omega_re, base.omega_re, atol=1e-6)
+    # the Hermitian-tensor dielectric moves the bands off the chiral ones
+    chiral = eigen_1p(8, "sc_curv", alpha, device="cpu", nev=4,
+                      verbose=False)
+    assert np.abs(chiral.omega_re - base.omega_re).max() > 1e-2
 
 
 def test_complex128_rr_gram_pallas_solve_matches_pcx():
@@ -221,6 +323,26 @@ def test_complex64_solve_plain_kernels_match_pallas_interpret_k3():
     x0 = _x0(ts, alpha)
     rj = js.solve(alpha, x0=boundary.encode(x0.astype(np.complex64)))
     rt = ts.solve(alpha, x0=torch.as_tensor(x0))
+    assert rt.status in (1, 5) and rj.status in (1, 5)
+    # complex64 iterates: frequencies to 5e-5 (tests/test_pallas.py:160)
+    np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=5e-5)
+
+
+def test_complex64_crossdof_solve_plain_kernels_match_pallas_interpret():
+    """The cross-DoF dielectric in complex64 with all three kernels' plain
+    versions against the three Pallas kernels in interpret mode."""
+    alpha = np.array([np.pi, 0.0, 0.0])
+    kw = dict(tol=1e-5, maxiter=300)
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex64, torch.complex64,
+                           jax_kw={"solver_opts": {"rp_fuse": "pallas",
+                                                   "dft_fuse": "pallas",
+                                                   "rr_gram": "pallas"}},
+                           torch_opts={"rr_gram": "pallas"},
+                           diel_type="pseudochiral_crossdof", **kw)
+    x0 = _x0(ts, alpha)
+    rj = js.solve(alpha, x0=boundary.encode(x0.astype(np.complex64)))
+    rt = ts.solve(alpha, x0=torch.as_tensor(x0))
+    assert rt.x.dtype == torch.complex64
     assert rt.status in (1, 5) and rj.status in (1, 5)
     # complex64 iterates: frequencies to 5e-5 (tests/test_pallas.py:160)
     np.testing.assert_allclose(rt.omega_re, rj.omega_re, atol=5e-5)
@@ -287,6 +409,29 @@ def test_refine_matches_pcx_f64_refine():
     np.testing.assert_allclose(rep_t.omega_pnt, rep_j.omega_pnt, atol=1e-10)
     np.testing.assert_allclose(rep_t.residuals, rep_j.residuals, rtol=1e-6,
                                atol=1e-10)
+    assert not rep_t.spurious and not rep_j.spurious
+
+
+@pytest.mark.parametrize("diel_type", ["pseudochiral_crossdof",
+                                       "pseudochiral_trivial"])
+def test_refine_pseudochiral_matches_pcx_f64_refine(diel_type):
+    """The complex128 refine applies the double-precision form of a
+    Hermitian-tensor dielectric; against the JAX f64 refine of the same
+    complex64 block.  The JAX complex64 solver stores the eps^{-1} entries
+    in float32 and casts them up (preset 0 holds sqrt(1 + 0.875^2) / 13,
+    not a float32 number), the port holds doubles: theta agrees to the
+    float32 rounding of those entries, 2e-7 relative."""
+    alpha = np.array([np.pi, 0.1, 0.0])
+    js, ts = _pair_solvers("sc_curv", 8, 4, jnp.complex64, torch.complex64,
+                           diel_type=diel_type, tol=1e-5)
+    js.refine = True
+    r = ts.solve(alpha, validate_result=False)
+    rep_j, theta_j, _ = js._refine_report(alpha, boundary.encode(r.x.numpy()))
+    theta_t, _, _ = ts.refine_stats(alpha, r.x)
+    np.testing.assert_allclose(theta_t, np.asarray(theta_j), rtol=2e-7)
+    rep_t = ts.validate_solution(alpha, r)
+    np.testing.assert_allclose(rep_t.omega_re, rep_j.omega_re, atol=1e-7)
+    np.testing.assert_allclose(rep_t.omega_pnt, rep_j.omega_pnt, atol=1e-7)
     assert not rep_t.spurious and not rep_j.spurious
 
 
@@ -367,9 +512,25 @@ def test_solver_rejects_unknown_options_and_dielectrics():
         KPointSolver(cfg, device="cpu", dtype=torch.complex128,
                      solver_opts={"rr_gram": "xla9"}).solve(
                          np.array([np.pi, 0, 0]))
-    with pytest.raises(NotImplementedError, match="chiral"):
-        KPointSolver(ProblemConfig(n=8, diel_type="pseudochiral_trivial"),
+    with pytest.raises(KeyError, match="Unknown dielectric type"):
+        KPointSolver(ProblemConfig(n=8, diel_type="pseudochiral_nope"),
                      device="cpu", dtype=torch.complex128)
+    for name in ("mixed", "davidson", "jd"):
+        with pytest.raises(NotImplementedError, match="P8"):
+            KPointSolver(cfg, device="cpu", dtype=torch.complex128,
+                         solver=name)
+    with pytest.raises(ValueError, match="unknown solver 'hardlock'"):
+        KPointSolver(cfg, device="cpu", dtype=torch.complex128,
+                     solver="hardlock")
+    with pytest.raises(ValueError, match="unknown solver 'hardlock'"):
+        JaxSolver(JaxConfig(n=8, lattice="sc_curv", nev=4),
+                  solver="hardlock")
+    with pytest.raises(ValueError, match="exactly one of scale= and diel="):
+        KPointSolver.from_arrays(cfg, d1=None, d0=None, ct=None,
+                                 device="cpu", dtype=torch.complex128)
+    with pytest.raises(ValueError, match="unknown solver"):
+        eigen_1p(8, "sc_curv", np.array([np.pi, 0, 0]), device="cpu",
+                 solver="hardlock")
 
 
 @pytest.mark.parametrize("opts", [{"col_patience": 3, "floor_patience": 3},

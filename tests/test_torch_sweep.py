@@ -19,6 +19,11 @@ from pcx_torch import bandstructure as bs
 from pcx_torch.io import EMPTY, FAILED, BandLibrary, load_reference_band_json
 from pcx_torch.metrics import load_jsonl
 
+# Every parallel test worker imports this file.  The problems here are
+# small, so two intra-op threads per process do; the default (one per core
+# in each worker) oversubscribes the cores several times over.
+torch.set_num_threads(min(torch.get_num_threads(), 2))
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWEEP = dict(n=8, lattice="sc_flat1", diel_type="chiral", nev=4, gap=4,
              device="cpu")
@@ -155,6 +160,7 @@ def test_bandgap_warm_failure_cold_retry(tmp_path, monkeypatch):
         iterations = 7
         wall_time = 0.5
         omega_re = np.arange(4) * 0.1
+        omega = omega_re
         report = None
         x = np.ones((4, 4))
 
@@ -240,6 +246,58 @@ def test_bandgap_complex64_reproduces_committed_rows(tmp_path):
                  - np.array(ref.frequencies[:3])).max()
     print(f"max |omega_port - omega_committed| over rows 0-2: {dev:.3e}")
     assert dev < 1e-3
+
+
+def test_bandgap_crossdof_reproduces_committed_rows(tmp_path):
+    """Rows 1-3 of the committed complex128 library
+    examples/bandgap_sc_curv_crossdof_n20.json (the JAX package's sweep of
+    the cross-DoF dielectric, N=20, gap 5 from its row count), swept by the
+    port in complex128 on the CPU: one cold point and two warm ones.
+    CONVERGED complex128 solves agree to 1e-9 (measured 8.5e-13)."""
+    src = os.path.join(ROOT, "examples", "bandgap_sc_curv_crossdof_n20.json")
+    ref, alphas = bs._open_library(src, "sc_curv", 20, None)
+    assert alphas.shape == (20, 3)
+    err = bs.bandgap(n=20, lattice="sc_curv",
+                     diel_type="pseudochiral_crossdof", nev=10,
+                     gap=alphas.shape[0] // 4, indices=[1, 2, 3],
+                     output_dir=str(tmp_path), dtype=torch.complex128,
+                     device="cpu", verbose=False,
+                     metrics_path=str(tmp_path / "metrics.jsonl"))
+    assert err == []
+    # each solve record carries both frequency sets of the spurious gate
+    for rec in load_jsonl(str(tmp_path / "metrics.jsonl")):
+        assert rec["diel_type"] == "pseudochiral_crossdof"
+        assert np.abs(np.array(rec["omega_pnt"])
+                      - np.array(rec["omega"])).max() < 1e-3
+    got, _ = bs._open_library(
+        str(tmp_path / "pseudochiral_crossdof/bandgap_sc_curv.json"),
+        "sc_curv", 20, None)
+    assert got.pending_indices() == [0] + list(range(4, 20))
+    np.testing.assert_allclose(np.array(got.frequencies[1:4]),
+                               np.array(ref.frequencies[1:4]), rtol=0,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("solver", ["nolock", "descent"])
+def test_bandgap_passes_the_solver_variant_and_eps_opt(tmp_path, solver):
+    """``solver_kw={"solver": ...}`` reaches the solver, the library goes
+    to {output_dir}/{diel_type}/bandgap_{lattice}{eps_opt}.json, and the
+    variant's rows agree with the softlock sweep's."""
+    kw = dict(n=8, lattice="sc_flat1", diel_type="pseudochiral_trivial",
+              eps_opt=1, nev=4, gap=2, indices=[1, 2], device="cpu",
+              verbose=False)
+    libs = []
+    for name, skw in (("soft", None), (solver, {"solver": solver})):
+        out = tmp_path / name
+        assert bs.bandgap(output_dir=str(out), solver_kw=skw, **kw) == []
+        with open(out / "pseudochiral_trivial/bandgap_sc_flat11.json") as f:
+            libs.append(json.load(f))
+    rows = [np.array(lib["sc_flat1_8_frequencies"][1:3]) for lib in libs]
+    np.testing.assert_allclose(rows[1], rows[0], rtol=0, atol=1e-6)
+    iters = [[r[0] for r in lib["sc_flat1_8_iterations"][1:3]]
+             for lib in libs]
+    if solver == "descent":   # no conjugate block: a slower solver
+        assert sum(iters[1]) > sum(iters[0])
 
 
 def test_open_library_rejects_a_row_count_off_the_path(tmp_path):
