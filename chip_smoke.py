@@ -55,13 +55,39 @@ failure ends the run with a non-zero exit:
              indices 0-2 stalls at a residual that the sweep's acceptance
              gate refuses, with every dielectric (measured on an H100;
              warm solves at indices 3-4 pass).
+12. solvers-32 — every eigensolver of pcx at sc_curv chiral N=32,
+             alpha=(pi,0,0), complex64, tol 1e-3, nev=6, maxiter 200 (the
+             protocol of tools/tpu_smoke.py): ``KPointSolver`` with solver
+             softlock, nolock, mixed, descent, davidson and jd, each inside
+             the 1e-3 spurious gate (MAXITER passes for descent and davidson
+             alone, and only with the gate); ``lobpcg_sep_max_rs`` on the
+             operator (6 columns, nev 2) against the power method to 1e-3
+             relative (PM_STEPS steps: the operator's two largest clusters
+             lie 0.3% apart, so the protocol's 200 steps leave the power
+             method itself 3.3e-3 low); ``lobpcg_gep_rs`` and
+             ``descent_gep_rs`` on the pencil (H, I + B / max B) (8 columns,
+             nev 4), relative residual
+             max ||H x - lambda M x|| / ((|lambda| + 1) ||x||) within 10 tol;
+             ``lobpcg_default`` on the 64-point shifted Laplacian against
+             3 - 2 cos(k pi / 65) within 10 tol; ``lobpcg_svd`` (complex128)
+             of a seeded 64x48 complex matrix against numpy's singular
+             values to 1e-6 relative.
+13. solvers-120 — single cold solves at the full width of phase 7 (sc_curv
+             chiral N=120, nev=10, alpha=(pi,0,0), complex64), gated like it
+             against the committed row: solver="mixed" with
+             rr_gram="pallas", "davidson" and "jd" (these two may end
+             MAXITER: they have no FLOOR rule, and the complex64 residual
+             floor lies above tol); the launch counts and peak device memory
+             of each solve.  Each launches K2, "mixed" K3 too and never K1.
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
 route), reset again just before phase 9 and read after it (K1, K2 and
 K3 must all have launched), and once more before phase 11: read after its
-sweep (K1, K2, K3) and after its single solves (K1, K2).  The ``{"kernels": [...]}`` line gives, per
-kernel, the sweep's launches, the kernel's time beside its plain
+sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
+solve of phase 13.  The ``{"kernels": [...]}`` line gives, per
+kernel, the sweep's launches (and ``launches_solvers``: phase 13's), the
+kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
 computes the same function (null where there is none).
@@ -100,6 +126,13 @@ SWEEP_INDICES = [8, 9, 10, 11, 12]
 PSEUDO_INDICES = [7, 8, 9, 10]
 TRIVIAL_INDEX = 10
 CROSSDOF, TRIVIAL = "pseudochiral_crossdof", "pseudochiral_trivial"
+# Phase 12: the tools/tpu_smoke.py protocol; phase 13: the full-width solves
+# and the iteration cap of each.
+SMALL_N, SMALL_NEV, SMALL_TOL, SMALL_MAXITER = 32, 6, 1e-3, 200
+KPS_SOLVERS = ("softlock", "nolock", "mixed", "descent", "davidson", "jd")
+PM_STEPS = 1000
+FULL_SOLVES = (("mixed", {"rr_gram": "pallas"}, 300),
+               ("davidson", {}, 120), ("jd", {}, 30))
 
 FAIL = 1
 
@@ -655,6 +688,160 @@ def phase_variants(dev, n: int = N, golden: bool = True) -> None:
         fail(f"chiral nolock: {why}")
 
 
+def phase_solvers_small(dev, n: int = SMALL_N) -> None:
+    """Phase 12: every solver of the JAX package's tools/tpu_smoke.py."""
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    from pcx_torch.operators import maxwell
+    from pcx_torch.operators.blocks import h_block
+    from pcx_torch.operators.symbols import HermSymbol
+    from pcx_torch.solvers import lobpcg, lobpcg_rs
+    from pcx_torch.solvers import rayleigh_ritz as rr
+    from pcx_torch.solvers.lobpcg import Status
+    tol, maxiter = SMALL_TOL, SMALL_MAXITER
+    alpha = np.array([np.pi, 0.0, 0.0])
+    cfg = ProblemConfig(n=n, lattice="sc_curv", nev=SMALL_NEV)
+    print(f"phase solvers-32: sc_curv chiral N={n} alpha=(pi,0,0) "
+          f"complex64 tol {tol} nev {SMALL_NEV} maxiter {maxiter}",
+          flush=True)
+    kps = None
+    for name in KPS_SOLVERS:
+        kps = KPointSolver(cfg, device=dev, tol=tol, maxiter=maxiter,
+                           dtype=torch.complex64, solver=name,
+                           diel=kps.diel if kps else None)
+        res = kps.solve(alpha, seed=0, validate_result=False)
+        why = gate(kps, alpha, res, None, name,
+                   maxiter_ok=name in ("descent", "davidson"))
+        if why:
+            fail(f"solvers-32 {name}: {why}")
+
+    kps = KPointSolver(cfg, device=dev, dtype=torch.complex64, diel=kps.diel)
+    sy = kps.symbols_for(alpha)
+
+    def h_func(v):
+        return maxwell.ama_bb(v, sy.d_a, sy.b, kps.diel, sy.shift, kps.dft)
+
+    bmax = sy.b.diag.max()
+    m_sym = HermSymbol(sy.b.diag / bmax, sy.b.sdiag / bmax)
+
+    def m_func(v):
+        return v + h_block(v, m_sym)
+
+    def p_func(v):
+        return h_block(v, sy.inv)
+
+    rng = np.random.default_rng(7)
+    shape = (10, 3, n, n, n)
+    x0 = torch.as_tensor((rng.standard_normal(shape) + 1j
+                          * rng.standard_normal(shape)).astype(np.complex64),
+                         device=dev)
+
+    def report(tag, res, t0, metric, value, limit, maxiter_ok=False):
+        wall = time.time() - t0
+        st = Status(res.status)
+        print(f"  {tag}: status {st.name} iters {res.iterations} wall "
+              f"{wall:.3f} s ({1e3 * wall / max(res.iterations, 1):.1f} "
+              f"ms/iter) {metric} {value:.3e} (limit {limit:.0e}); lambdas "
+              f"{np.array2string(res.lambdas.cpu().numpy()[:4], precision=6)}",
+              flush=True)
+        ok = (st in (Status.CONVERGED, Status.FLOOR)
+              or (maxiter_ok and st == Status.MAXITER))
+        if not (ok and np.isfinite(value) and value <= limit
+                and bool(torch.isfinite(res.lambdas).all())):
+            fail(f"solvers-32 {tag}: status {st.name}, {metric} {value:.3e}")
+
+    t0 = time.time()
+    res = lobpcg_rs.lobpcg_sep_max_rs(h_func, x0[:6], 2, tol=tol,
+                                      maxiter=maxiter)
+    _, v, _ = rr.power_method(h_func, x0[:1], maxiter=PM_STEPS,
+                               tol=0.0)
+    lam_pm = float(torch.vdot(v.flatten(), h_func(v).flatten()).real
+                   / torch.vdot(v.flatten(), v.flatten()).real)
+    report("lobpcg_sep_max_rs", res, t0, "|lambda_max - power method| / "
+           "lambda", abs(float(res.lambdas[0]) - lam_pm) / lam_pm, 1e-3)
+
+    for name in ("lobpcg_gep_rs", "descent_gep_rs"):
+        t0 = time.time()
+        res = getattr(lobpcg_rs, name)(h_func, m_func, p_func, x0[:8], 4,
+                                       tol=tol, maxiter=maxiter)
+        xs, lam = res.x[:4], res.lambdas[:4]
+        r = h_func(xs) - lam.to(xs.dtype)[:, None, None, None, None] \
+            * m_func(xs)
+        rel = float((rr.colnorms(r) / ((lam.abs() + 1.0)
+                                       * rr.colnorms(xs))).max())
+        report(name, res, t0, "relative residual", rel, 10 * tol,
+               maxiter_ok=name == "descent_gep_rs")
+
+    nd = 64
+    lap = (np.diag(np.full(nd, 3.0)) - np.diag(np.ones(nd - 1), 1)
+           - np.diag(np.ones(nd - 1), -1)).astype(np.float32)
+    exact = 3.0 - 2.0 * np.cos(np.arange(1, 5) * np.pi / (nd + 1))
+    t0 = time.time()
+    res = lobpcg.lobpcg_default(lap, nev=4, rlx=3, tol=tol, maxiter=maxiter,
+                                seed=11, device=dev)
+    report("lobpcg_default", res, t0, "max|lambda - exact|",
+           float(np.abs(res.lambdas[:4].cpu().numpy() - exact).max()),
+           10 * tol)
+
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.standard_normal((64, 48))
+                        + 1j * rng.standard_normal((64, 48)), device=dev)
+    want = np.sort(np.linalg.svd(a.cpu().numpy(), compute_uv=False))[:3]
+    xs = torch.as_tensor(rng.standard_normal((6, 48))
+                         + 1j * rng.standard_normal((6, 48)), device=dev)
+    t0 = time.time()
+    res = lobpcg.lobpcg_svd(lambda v: v @ a.T, lambda u: u @ a.conj(), xs, 3,
+                            tol=1e-8, maxiter=maxiter)
+    report("lobpcg_svd (complex128)", res, t0,
+           "max relative error of the 3 smallest singular values",
+           float(np.abs(res.lambdas[:3].cpu().numpy() - want).max()
+                 / want.min()), 1e-6)
+
+
+def phase_solvers_full(dev, n: int = N, golden: bool = True) -> dict:
+    """Phase 13: the full-width solves of mixed, davidson and jd; returns
+    the launches of each kernel over the three solves."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    alpha = np.array([np.pi, 0.0, 0.0])
+    print(f"phase solvers-{n}: sc_curv chiral N={n} nev={NEV} "
+          f"alpha=(pi,0,0) cold complex64 solves", flush=True)
+    total = dict.fromkeys(kmod.launches(), 0)
+    cfg = ProblemConfig(n=n, lattice="sc_curv", nev=NEV)
+    ref = golden_row("sc_curv", n, 19) if golden else None
+    diel = None
+    for name, opts, maxiter in FULL_SOLVES:
+        kps = KPointSolver(cfg, device=dev, dtype=torch.complex64,
+                           solver=name, maxiter=maxiter, solver_opts=opts,
+                           diel=diel)
+        diel = kps.diel
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        res = kps.solve(alpha, seed=0, validate_result=False)
+        counts = kmod.launches()
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else float("nan"))
+        print(f"  {name} {opts}: launches {counts}, peak device memory "
+              f"{peak:.2f} GiB, maxiter {maxiter}", flush=True)
+        why = gate(kps, alpha, res, ref, f"{name} k=19",
+                   maxiter_ok=name != "mixed")
+        if why:
+            fail(f"solvers-{n} {name}: {why}")
+        if dev.type == "cuda":
+            if not counts["axis_dft"]:
+                fail(f"solvers-{n} {name}: K2 never launched: {counts}")
+            if name == "mixed" and (counts["resid_precond"]
+                                    or not counts["gram9"]):
+                fail(f"solvers-{n} mixed: K1 launched or K3 did not: "
+                     f"{counts}")
+        for k, v in counts.items():
+            total[k] += v
+        del kps, res
+    return total
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -721,6 +908,11 @@ def main() -> None:
         fail(f"K1 or K2 never launched in the variants' solves: {counts}")
     for rec in kernels:
         rec["launches_variants"] = counts[rec["name"]]
+    phase_solvers_small(dev)
+    counts = phase_solvers_full(dev)
+    print(f"phase launches: {counts} in the solves of phase 13", flush=True)
+    for rec in kernels:
+        rec["launches_solvers"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """pcx_torch — the PyTorch / CUDA port of pcx (Photonic Crystals on XLA).
 
-The single-k-point LOBPCG solve of pcx (``KPointSolver.solve``) and the
-band sweep (``bandgap``) on one NVIDIA H100, for every dielectric of pcx:
+The single-k-point solve of pcx (``KPointSolver.solve``, with every solver
+of pcx: the LOBPCG variants, Davidson and Jacobi-Davidson), the band sweep
+(``bandgap``) and the eigensolver library (``pcx_torch.solvers``) on one
+NVIDIA H100, for every dielectric of pcx:
 complex64 iterate, complex128 refine and validation, and the three Pallas
 TPU kernels of that path rewritten as CUDA C++ for sm_90a
 (``pcx_torch.kernels``).  The JAX package ``pcx`` stays the reference; this

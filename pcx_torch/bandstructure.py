@@ -11,14 +11,15 @@ checkpointed, resumable, warm-started sweep over a Brillouin-zone path
 
 Every dielectric of ``pcx_torch.operators.dielectric`` runs through these
 entry points (``diel_type``: chiral, pseudochiral_trivial,
-pseudochiral_crossdof), and the production solver has its ``nolock`` and
-``descent`` variants (``solver=``).
+pseudochiral_crossdof), with every solver of the JAX package's
+``solver=``: the production soft-locking LOBPCG and its ``nolock``,
+``descent`` and ``mixed`` forms, ``davidson`` and ``jd``.
 
-On a complex64 solve the operator's DFT passes run kernel K2 and the
-residual/preconditioner pass runs kernel K1, whatever the dielectric and
-the variant; with
-``solver_opts={"rr_gram": "pallas"}`` the Rayleigh-Ritz Gram runs kernel K3
-(any dtype).  On CPU tensors the wrappers take their plain PyTorch
+On a complex64 solve the operator's DFT passes run kernel K2 and, for the
+LOBPCG forms but ``mixed``, the residual/preconditioner pass runs kernel
+K1, whatever the dielectric; with
+``solver_opts={"rr_gram": "pallas"}`` the Rayleigh-Ritz Gram of the LOBPCG
+forms runs kernel K3 (any dtype).  On CPU tensors the wrappers take their plain PyTorch
 versions.  The refine runs in complex128 with
 torch.fft, as the JAX refine runs its f64 pair operator with XLA products.
 """
@@ -41,10 +42,11 @@ from pcx_torch.io import BandLibrary
 from pcx_torch.kernels.resid_precond import resid_precond
 from pcx_torch.operators import maxwell
 from pcx_torch.operators import symbols as sym
-from pcx_torch.operators.blocks import h_block
+from pcx_torch.operators.blocks import h_block, h_block_planes
 from pcx_torch.operators.dft import dft_mats
 from pcx_torch.operators import dielectric as diel_mod
 from pcx_torch.solvers import rayleigh_ritz as rr
+from pcx_torch.solvers.davidson import davidson_sep, jd_sep
 from pcx_torch.solvers.lobpcg import Status
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
 from pcx_torch.metrics import RunLogger
@@ -53,17 +55,23 @@ from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, norms,
 
 SOLVER_OPTS = ("ortho_passes", "refresh_every", "floor_patience",
                "col_patience", "lam_tol", "lam_patience", "lam_res_tol",
-               "rr_gram", "use_p")
+               "rr_gram", "use_p", "subspace")
 # Keys of solver_opts that KPointSolver itself takes and pops before the
 # rest reach the solver (pcx/bandstructure.py:238, 255-257).
 SOLVE_OPTS = ("warm_maxiter", "doom_check", "doom_tol")
 
 # Solver variants (reference eigen_1p's ``solver`` argument,
-# numerical_experiments.py:209): the production soft-locking LOBPCG, the same
-# without locking, and without the conjugate block.  The others the JAX
-# package knows are not ported yet (ROADMAP queue 1, P8).
-SOLVERS = ("softlock", "nolock", "descent")
-SOLVERS_UNPORTED = ("mixed", "davidson", "jd")
+# numerical_experiments.py:209), as pcx KPointSolver takes them
+# (pcx/bandstructure.py:206-208): the production soft-locking LOBPCG, the
+# same without locking, with a bfloat16 preconditioner, without the
+# conjugate block, and block Davidson and Jacobi-Davidson.
+SOLVERS = ("softlock", "nolock", "mixed", "descent", "davidson", "jd")
+DAVIDSONS = ("davidson", "jd")
+# solver_opts keys of the LOBPCG solver that the JAX complex route, which
+# serves Davidson and JD, refuses (pcx/bandstructure.py:422-432); Davidson
+# and JD ignore the other LOBPCG keys, and take ``subspace`` alone.
+LOBPCG_ONLY_OPTS = ("rr_gram", "col_patience", "lam_tol", "lam_patience",
+                    "lam_res_tol")
 
 # Doom-check marks of a warm solve: the first at 24 iterations, then every
 # 40 (the JAX segmented solve's boundaries, bandstructure.py:1469-1503).
@@ -111,9 +119,13 @@ class KPointSolver:
     bound stalls above ``doom_tol`` (default ``lam_res_tol``, else 1e-3);
     see pcx KPointSolver.__init__ for the measured rationale of both.
     ``solver``: ``"softlock"`` (production), ``"nolock"`` (every column
-    stays active) or ``"descent"`` (no conjugate block: ``use_p=False``),
-    as the JAX package's pair-layout route serves them
-    (pcx/bandstructure.py:259, 312-316).
+    stays active), ``"descent"`` (no conjugate block: ``use_p=False``) or
+    ``"mixed"`` (the preconditioner in bfloat16 on real and imaginary
+    planes, K1 off), as the JAX package's pair-layout route serves them
+    (pcx/bandstructure.py:259, 312-316, 484-496, 517-518); ``"davidson"``
+    and ``"jd"`` (``solvers.davidson``, capacity max(subspace, 3m) with
+    ``solver_opts["subspace"]``, default 40), one unsegmented solve with
+    no warm cap and no doom check (pcx/bandstructure.py:372-376, 457-461).
     ``diel``/``parts`` replace the dielectric built from ``cfg`` by
     ``dielectric.build`` and the 1-D symbol parts (see ``from_arrays``).
     """
@@ -124,10 +136,6 @@ class KPointSolver:
                  solver_opts: Optional[dict] = None,
                  diel: Optional[diel_mod.DielectricOp] = None,
                  parts: Optional[sym.SymbolParts] = None):
-        if solver in SOLVERS_UNPORTED:
-            raise NotImplementedError(
-                f"solver {solver!r} is not ported yet (ROADMAP queue 1, P8); "
-                f"ported: {SOLVERS}")
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
         if dtype not in (torch.complex64, torch.complex128):
@@ -148,6 +156,11 @@ class KPointSolver:
         if unknown:
             raise ValueError(f"unknown solver_opts {unknown}; supported: "
                              f"{SOLVER_OPTS + SOLVE_OPTS}")
+        refused = sorted(set(opts) & set(LOBPCG_ONLY_OPTS if solver in
+                                         DAVIDSONS else ("subspace",)))
+        if refused:
+            raise ValueError(f"solver_opts {refused} are not options of "
+                             f"solver {solver!r}")
         if dtype == torch.complex64:
             # complex64 robustness defaults of the JAX solver
             # (bandstructure.py:261-280): two orthogonalization passes,
@@ -158,6 +171,7 @@ class KPointSolver:
         if solver == "descent":
             opts.setdefault("use_p", False)
         self.solver_opts = opts
+        self.solver = solver
         self.locking = solver != "nolock"
         self.last_doom = None   # (it, worst bound) of the last doom bail
         ct = (lattices.ct_matrix(cfg.lattice) if cfg.lattice else np.eye(3))
@@ -289,19 +303,32 @@ class KPointSolver:
             return maxwell.ama_bb(v, sy.d_a, sy.b, self.diel, sy.shift,
                                   self.dft)
 
-        def p_func(v):
-            return h_block(v, sy.inv)
+        if self.solver == "mixed":
+            p_func = _p_func_bf16(sy.inv)
+        else:
+            def p_func(v):
+                return h_block(v, sy.inv)
 
-        rp = (self._rp_fused(sy.inv, m) if self.dtype == torch.complex64
-              else None)
         self.last_doom = None
-        limit = (min(self.maxiter, self.warm_maxiter)
-                 if warm and self.warm_maxiter > 0 else None)
-        monitor = self._doom_monitor() if warm and self.doom_check else None
-        res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                            maxiter=self.maxiter, locking=self.locking,
-                            rp_fused=rp, limit=limit,
-                            monitor=monitor, **self.solver_opts)
+        if self.solver in DAVIDSONS:
+            fn = davidson_sep if self.solver == "davidson" else jd_sep
+            kw = {k: v for k, v in self.solver_opts.items()
+                  if k == "subspace"}
+            res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
+                     maxiter=self.maxiter, **kw)
+        else:
+            # K1 computes the preconditioner in float32: off for "mixed"
+            rp = (self._rp_fused(sy.inv, m)
+                  if self.dtype == torch.complex64 and self.solver != "mixed"
+                  else None)
+            limit = (min(self.maxiter, self.warm_maxiter)
+                     if warm and self.warm_maxiter > 0 else None)
+            monitor = (self._doom_monitor() if warm and self.doom_check
+                       else None)
+            res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
+                                maxiter=self.maxiter, locking=self.locking,
+                                rp_fused=rp, limit=limit,
+                                monitor=monitor, **self.solver_opts)
         self._sync()
         wall = time.time() - t0
 
@@ -368,6 +395,24 @@ class KPointSolver:
                                    raise_on_spurious=raise_on_spurious)[0]
 
 
+def _p_func_bf16(inv: sym.HermSymbol):
+    """The preconditioner of ``solver="mixed"``: ``h_block`` with the
+    symbol and the block in bfloat16 on real and imaginary planes, the
+    result cast back to the iterate's dtype (pcx/bandstructure.py:484-496;
+    the reference's low-precision preconditioner, paper_2/lobpcg.py:
+    494-629, with bfloat16 below a single-precision iterate)."""
+    lo = torch.bfloat16
+    d, sr, si = (a.to(lo) for a in (inv.diag, inv.sdiag.real,
+                                    inv.sdiag.imag))
+    rdt = inv.diag.dtype
+
+    def p_func(v):
+        yr, yi = h_block_planes(v.real.to(lo), v.imag.to(lo), d, sr, si)
+        return torch.complex(yr.to(rdt), yi.to(rdt))
+
+    return p_func
+
+
 def eigen_1p(n: int, lattice: str, alpha, *, device,
              dtype: torch.dtype = torch.complex128,
              diel_type: str = TYPE_CHIRAL, nev: int = NEV, tol: float = TOL,
@@ -375,7 +420,8 @@ def eigen_1p(n: int, lattice: str, alpha, *, device,
              solver: str = "softlock", eps_opt: int = 0,
              verbose: bool = True, **solver_kw) -> EigenResult:
     """Single-k-point solve (reference: numerical_experiments.py:209-247).
-    ``solver`` selects the variant: softlock, nolock or descent."""
+    ``solver`` selects the variant: softlock, nolock, mixed, descent,
+    davidson or jd (see ``KPointSolver``)."""
     cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type, nev=nev,
                         eps_opt=eps_opt)
     kps = KPointSolver(cfg, device=device, dtype=dtype, tol=tol,

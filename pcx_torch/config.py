@@ -23,6 +23,7 @@ TOL = 1e-4     # LOBPCG residual tolerance.
 GAP = 20       # Points per Brillouin-zone path segment.
 
 MAXITER = 500
+N_SUBSPACE = 40   # Davidson/JD subspace capacity (solvers/davidson.py).
 
 # Lattice type names (reference: paper_2/environment.py:35-40).
 SC_F1 = "sc_flat1"

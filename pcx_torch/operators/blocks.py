@@ -32,3 +32,31 @@ def h_block(x: torch.Tensor, sym: HermSymbol) -> torch.Tensor:
                         s[0].conj() * x0 + d[1] * x1 + s[2] * x2,
                         s[1].conj() * x0 + s[2].conj() * x1 + d[2] * x2),
                        dim=-4)
+
+
+def h_block_planes(xr: torch.Tensor, xi: torch.Tensor, diag: torch.Tensor,
+                   sr: torch.Tensor, si: torch.Tensor):
+    """``h_block`` on real and imaginary planes, for a real dtype with no
+    complex counterpart (bfloat16: the preconditioner of
+    ``solver="mixed"``); the operations of ``rs.h_block_p`` in its order.
+    Returns (yr, yi)."""
+    def comp(a, c):
+        return a[..., c, :, :, :]
+
+    def mul(a, b):             # complex product of two (re, im) pairs
+        return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+    def add(*terms):
+        re, im = terms[0]
+        for t in terms[1:]:
+            re, im = re + t[0], im + t[1]
+        return re, im
+
+    x0, x1, x2 = ((comp(xr, c), comp(xi, c)) for c in range(3))
+    s0, s1, s2 = ((sr[c], si[c]) for c in range(3))
+    c0, c1, c2 = ((sr[c], -si[c]) for c in range(3))
+    y0 = add((x0[0] * diag[0], x0[1] * diag[0]), mul(s0, x1), mul(s1, x2))
+    y1 = add(mul(c0, x0), (x1[0] * diag[1], x1[1] * diag[1]), mul(s2, x2))
+    y2 = add(mul(c1, x0), mul(c2, x1), (x2[0] * diag[2], x2[1] * diag[2]))
+    return (torch.stack((y0[0], y1[0], y2[0]), dim=-4),
+            torch.stack((y0[1], y1[1], y2[1]), dim=-4))

@@ -1,5 +1,6 @@
 """The production soft-locking LOBPCG of pcx, as a Python loop on complex
-tensors.
+tensors, and the generalized-problem family of ``pcx/solvers/lobpcg_rs.py``
+(``lobpcg_gep_rs``, ``lobpcg_sep_max_rs``, ``descent_gep_rs``).
 
 Port of ``pcx/solvers/lobpcg_rs.py`` (``rs_solver_parts`` composed as
 ``lobpcg_sep_rs``, lines 43-605): fixed-shape masked soft locking,
@@ -20,6 +21,7 @@ on CUDA checks its error flag on the host, which synchronizes).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -28,10 +30,10 @@ import torch
 from pcx_torch.config import MAXITER, TOL
 from pcx_torch.kernels.gram9 import gram9
 from pcx_torch.solvers import rayleigh_ritz as rr
-from pcx_torch.solvers.lobpcg import SolveResult, Status
+from pcx_torch.solvers.lobpcg import (SolveResult, Status, _NP_REAL,
+                                      lobpcg_gep)
 from pcx_torch.utils import real_dtype
 
-_NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
 MAXSTAGNITER = 50   # stagnation window of the blow-up guard
 
 
@@ -308,3 +310,48 @@ def lobpcg_sep_rs(
                   else Status.MAXITER)
     return SolveResult(lambdas=lambdas, x=x.reshape(shape), iterations=it,
                        status=int(status), res_history=trk.res_his)
+
+
+def lobpcg_gep_rs(h_func, m_func, p_func, x0: torch.Tensor, nev: int, *,
+                  tol: float = TOL, maxiter: int = MAXITER,
+                  locking: bool = True, normalize: bool = True,
+                  use_p: bool = True, floor_patience: int = 10
+                  ) -> SolveResult:
+    """LOBPCG for H x = lambda M x (M Hermitian positive definite), the
+    algorithm of ``pcx.solvers.lobpcg_rs.lobpcg_gep_rs``.
+
+    The JAX function is the (re, im) pair transform of the complex
+    ``lobpcg_gep`` that the TPU needed; here it is ``lobpcg_gep`` on
+    complex tensors with the twin's rules: complex128-accumulated Grams,
+    the whitened pencil with the degeneracy split of the iterate dtype,
+    a FLOOR stop after ``floor_patience`` iterations without a 5%
+    improvement (0 disables), and on any stop but CONVERGED the Ritz values
+    of the best iteration: past the complex64 floor the noisy Grams breed
+    below-spectrum phantoms in the current ones.
+    """
+    pencil = functools.partial(rr.pencil_eigh,
+                               split=rr.split_for(real_dtype(x0.dtype)))
+    return lobpcg_gep(h_func, m_func, p_func, x0, nev, tol=tol,
+                      maxiter=maxiter, locking=locking, normalize=normalize,
+                      use_p=use_p, rr_pencil=pencil,
+                      floor_patience=floor_patience, f64_gram=True,
+                      best_on_stop=True)
+
+
+def lobpcg_sep_max_rs(h_func, x0: torch.Tensor, nev: int, *,
+                      tol: float = TOL, maxiter: int = MAXITER
+                      ) -> SolveResult:
+    """Largest eigenvalues of H through the inverse pencil I x = mu H x by
+    ``lobpcg_gep_rs`` without locking (twin of lobpcg_sep_max; reference
+    paper_2/lobpcg.py:196-323)."""
+    r = lobpcg_gep_rs(lambda v: v, h_func, lambda v: v, x0, nev, tol=tol,
+                      maxiter=maxiter, locking=False)
+    return r._replace(lambdas=1.0 / r.lambdas)
+
+
+def descent_gep_rs(h_func, m_func, p_func, x0: torch.Tensor, nev: int,
+                   **kw) -> SolveResult:
+    """Two-term steepest descent for the generalized problem (twin of
+    descent_gep; reference paper_2/lobpcg.py:976-1100)."""
+    kw["use_p"] = False
+    return lobpcg_gep_rs(h_func, m_func, p_func, x0, nev, **kw)

@@ -1,9 +1,9 @@
-"""Dense local algebra of the production LOBPCG: Grams, mixes, masked SVQB
-with column dropping, and the small Hermitian eigenproblems.
+"""Dense local algebra of the eigensolvers: Grams, mixes, the masked
+orthonormalizers (SVQB with column dropping, MGS, Loewdin, Cholesky-QR),
+the small Hermitian eigenproblems and pencils, and the power method.
 
-Port of the subset of ``pcx/solvers/rayleigh_ritz.py`` (and
-``rs.pencil_f64_embedding``) that ``lobpcg_rs`` and the refine call.  Blocks
-of vectors are (p, D) complex tensors, the vector index first.
+Port of ``pcx/solvers/rayleigh_ritz.py`` (and ``rs.pencil_f64_embedding``).
+Blocks of vectors are (p, D) complex tensors, the vector index first.
 
 The JAX package solves its small Hermitian problems through a real f64
 embedding with emulated-f64 repairs, because the TPU has no complex128.  On
@@ -22,13 +22,22 @@ from pcx_torch.utils import norms, real_dtype
 
 C128 = torch.complex128
 
+# Columns per partial of the Grams.  A single-precision GEMM accumulates
+# its k dimension in single precision, so a partial's rounding error grows
+# with sqrt(chunk).  On an H100 a (16, 3*120^3) complex64 Gram carried
+# 5.3e-6 relative error against complex128 at 65536 columns per partial
+# and 3.6e-6 as one GEMM, where the CPU's blocked GEMM keeps ~3e-7; that
+# error, times the penalty eigenvalues in the Rayleigh-Ritz matrix, set
+# the complex64 residual floor of the solvers on the card (PERF.md, F3).
+GRAM_CHUNK = 256
+
 
 def hermitize(a: torch.Tensor) -> torch.Tensor:
     """(A + A^H) / 2."""
     return 0.5 * (a + a.mH)
 
 
-def divisor_chunk(d: int, target: int = 65536) -> int:
+def divisor_chunk(d: int, target: int) -> int:
     """Largest Gram chunk <= target that divides d (so the chunked view needs
     no padding); ``target`` when d has no divisor near it."""
     lo = -(-d // target)
@@ -39,14 +48,14 @@ def divisor_chunk(d: int, target: int = 65536) -> int:
 
 
 def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0) -> torch.Tensor:
-    """G[i, j] = <x_i, y_j> (complex128) for row-blocks x (p, D), y (q, D),
-    as working-precision partials over D-chunks summed in complex128: the
-    error grows with sqrt(chunk), not sqrt(D)
-    (twin of ``rayleigh_ritz.gram_f64_p``).  ``chunk=0`` picks
-    ``divisor_chunk(D)``."""
+    """G[i, j] = <x_i, y_j> (complex128; float64 for real blocks) for
+    row-blocks x (p, D), y (q, D), as working-precision partials over
+    D-chunks summed in double: the error grows with sqrt(chunk), not
+    sqrt(D) (twin of ``rayleigh_ritz.gram_f64_p``).  ``chunk=0`` picks
+    ``divisor_chunk(D, GRAM_CHUNK)``."""
     p, d = x.shape
     q = y.shape[0]
-    chunk = chunk or divisor_chunk(d)
+    chunk = chunk or divisor_chunk(d, GRAM_CHUNK)
     nc = -(-d // chunk)
     pad = nc * chunk - d
     if pad:
@@ -56,13 +65,15 @@ def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     yc = y.view(q, nc, chunk).transpose(0, 1)
     # conj(G_c) = X_c Y_c^H: the conjugate rides on the transposed operand.
     part = torch.matmul(xc, yc.mH)
-    return torch.conj_physical(part.to(C128).sum(dim=0))
+    acc = C128 if part.is_complex() else torch.float64
+    return torch.conj_physical(part.sum(dim=0, dtype=acc))
 
 
 def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Working-precision Gram conj(X) Y^T (p, q), for projections
-    (twin of ``rayleigh_ritz.gram_p32``)."""
-    return torch.conj_physical(torch.matmul(x, y.mH))
+    """The Gram conj(X) Y^T (p, q) in the working precision, for
+    projections (twin of ``rayleigh_ritz.gram_p32``): ``gram_f64``
+    rounded, as one GEMM over all of D loses digits on the card."""
+    return gram_f64(x, y).to(x.dtype)
 
 
 def mix(c: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -178,3 +189,172 @@ def pencil_eigh(t: torch.Tensor, g: torch.Tensor, split: float = 1e-12
     bump = 2.0 * scale * (dead > 0.5).to(torch.float64)
     theta, v = torch.linalg.eigh(tw + torch.diag(pert + bump).to(C128))
     return theta, s @ v
+
+
+def _tri_solve(l: torch.Tensor, b: torch.Tensor, upper: bool = False
+               ) -> torch.Tensor:
+    return torch.linalg.solve_triangular(l, b, upper=upper)
+
+
+def short_qr(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormalize a row-block via Cholesky-QR
+    (reference: orthogonalization.py:36-46)."""
+    l = torch.linalg.cholesky(hermitize(gram(x, x)))
+    return _tri_solve(l, x)
+
+
+def eigh_pencil(t: torch.Tensor, g: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Solve the Hermitian-definite pencil T v = theta G v by Cholesky
+    reduction to a standard Hermitian eigenproblem
+    (reference: GEP_chol, orthogonalization.py:99-115)."""
+    l = torch.linalg.cholesky(g)
+    t1 = _tri_solve(l, t)
+    t2 = _tri_solve(l, t1.mH).mH
+    theta, q = torch.linalg.eigh(hermitize(t2))
+    return theta, _tri_solve(l.mH, q, upper=True)   # v = L^{-H} q
+
+
+def eigh_pencil_whiten(t: torch.Tensor, g: torch.Tensor, split: float = 1e-10
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pencil T v = theta G v by G-whitening: S = G^(-1/2) from the
+    split eigh of G, the split eigh of S T S, C = S V.  Numerically dead
+    directions (zero G rows: masked basis columns) get zero whitening weight
+    and their Ritz slot bumped above the spectrum, so they sort last
+    (``rayleigh_ritz.eigh_pencil_whiten``, in complex128 instead of the
+    real embedding).  Returns theta in the real dtype of ``t``."""
+    t128, g128 = hermitize(t).to(C128), hermitize(g).to(C128)
+    wg, u = eigh_split(g128, 1e-12)
+    alive = wg > 1e-12 * wg.max()
+    inv = torch.where(alive, 1.0 / torch.sqrt(wg.clamp(min=1e-30)),
+                      torch.zeros_like(wg))
+    s = (u * inv.to(C128)) @ u.mH
+    tw = s @ t128 @ s
+    sgs = torch.diagonal(s @ g128 @ s).real
+    scale = tw.real.abs().max() + tw.imag.abs().max() + 1e-30
+    bump = 2.0 * scale * (sgs < 0.5).to(torch.float64)
+    theta, v = eigh_split(hermitize(tw) + torch.diag(bump).to(C128), split)
+    return theta.to(real_dtype(t.dtype)), (s @ v).to(t.dtype)
+
+
+def rayleigh_ritz(s: torch.Tensor, hs: torch.Tensor):
+    """Plain Rayleigh-Ritz on a row-block: Ritz values and vectors of H in
+    span(s) (reference: rayleigh_ritz_chol_sep, orthogonalization.py:
+    140-154)."""
+    return eigh_pencil(hermitize(gram(s, hs)), hermitize(gram(s, s)))
+
+
+def masked_loewdin(block: torch.Tensor, mask: torch.Tensor, jitter: float,
+                   hblock: Optional[torch.Tensor] = None, passes: int = 1):
+    """Loewdin (symmetric) orthonormalization of the active rows: Q =
+    mix(S, B), S = (G + pad)^(-1/2) from the complex128-accumulated Gram,
+    its eigenvalues clamped at ``jitter`` times the largest.  Masked-out
+    rows must be zero; the padded Gram diagonal keeps them zero."""
+    mask64 = mask.to(torch.float64)
+    keep = mask64[:, None] * mask64[None, :]
+    dead = torch.diag(1.0 - mask64)
+    rmask = mask.to(real_dtype(block.dtype))[:, None]
+    for _ in range(passes):
+        g = hermitize(gram_f64(block, block)) * keep + dead
+        w, v = eigh_split(g, 1e-10)
+        w = torch.maximum(w, jitter * w[-1].clamp(min=1e-30))
+        s = ((v * (1.0 / torch.sqrt(w))) @ v.mH).to(block.dtype)
+        block = mix(s, block) * rmask
+        if hblock is not None:
+            hblock = mix(s, hblock) * rmask
+    return block, hblock
+
+
+def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
+               hblock: Optional[torch.Tensor] = None,
+               against: Sequence[torch.Tensor] = (),
+               h_against: Sequence[torch.Tensor] = (), passes: int = 2):
+    """Masked modified Gram-Schmidt with dependent-column dropping: the
+    active rows are projected off the orthonormal rows of each ``against``
+    base, then orthonormalized one after another; a row whose residual
+    norm falls below ``drop_tol`` is zeroed and masked out.  ``hblock``/
+    ``h_against`` follow the same combinations.  Returns (q, hq, mask)
+    with the mask in the real dtype."""
+    m = block.shape[0]
+    rdtype = real_dtype(block.dtype)
+    tiny = torch.finfo(rdtype).tiny
+    msk = mask.to(rdtype).clone()
+    for base, hbase in zip(against, h_against or [None] * len(against)):
+        for _ in range(passes):
+            coeff = gram(base, block)
+            block = block - mix(coeff, base)
+            if hblock is not None and hbase is not None:
+                hblock = hblock - mix(coeff, hbase)
+    q = block.clone()
+    hq = hblock.clone() if hblock is not None else None
+    idx = torch.arange(m, device=block.device)
+    for i in range(m):
+        col = q[i:i + 1]
+        hcol = hq[i:i + 1] if hq is not None else None
+        wsel = ((idx < i).to(rdtype) * msk)[:, None]
+        for _ in range(passes):
+            coeff = gram(q, col) * wsel
+            col = col - mix(coeff, q)
+            if hq is not None:
+                hcol = hcol - mix(coeff, hq)
+        nrm = colnorms(col)[0]
+        ok = msk[i] * (nrm > drop_tol).to(rdtype)
+        scale = ok / nrm.clamp(min=tiny)
+        q[i] = col[0] * scale
+        if hq is not None:
+            hq[i] = hcol[0] * scale
+        msk[i] = ok
+    return q, hq, msk
+
+
+def masked_cholqr(block: torch.Tensor, mask: torch.Tensor, jitter: float,
+                  hblock: Optional[torch.Tensor] = None, passes: int = 1):
+    """Cholesky-QR of the active rows (``passes=2``: CholQR2).  Masked-out
+    rows must be zero and stay zero (their Gram diagonal is padded with 1);
+    ``jitter`` times the largest Gram diagonal regularizes the factor.
+    ``hblock`` follows the same row combinations."""
+    keep = (mask[:, None] * mask[None, :]).to(block.dtype)
+    dead = torch.diag(1.0 - mask).to(block.dtype)
+    rmask = mask.to(real_dtype(block.dtype))[:, None]
+    eye = torch.eye(block.shape[0], dtype=block.dtype, device=block.device)
+    for _ in range(passes):
+        g = hermitize(gram(block, block)) * keep + dead
+        g = g + jitter * torch.diagonal(g).abs().max() * eye
+        lc = torch.linalg.cholesky(g).conj()
+        # Row convention: Q = conj(L)^{-1} B, so conj(Q) Q^T = I.
+        block = _tri_solve(lc, block) * rmask
+        if hblock is not None:
+            hblock = _tri_solve(lc, hblock) * rmask
+    return block, hblock
+
+
+def project_off(block: torch.Tensor, basis: torch.Tensor,
+                hblock: Optional[torch.Tensor] = None,
+                hbasis: Optional[torch.Tensor] = None):
+    """Project the rows of ``block`` off the orthonormal rows of ``basis``
+    (and apply the same combination to ``hblock`` with ``hbasis``)."""
+    coeff = gram(basis, block)
+    block = block - mix(coeff, basis)
+    if hblock is not None:
+        hblock = hblock - mix(coeff, hbasis)
+    return block, hblock
+
+
+def power_method(a_func, x0: torch.Tensor, maxiter: int = 1000,
+                 tol: float = 1e-5):
+    """Largest eigenvalue by the power method (reference:
+    orthogonalization.py:57-85): returns (lambda, x, iterations), lambda
+    a 0-d tensor of the real dtype.  The stopping test reads one scalar
+    back to the host per step."""
+    x = x0 / torch.linalg.vector_norm(x0)
+    lam = torch.zeros((), dtype=real_dtype(x0.dtype), device=x0.device)
+    i = 0
+    while i < maxiter:
+        ax = a_func(x)
+        lam = torch.linalg.vector_norm(ax)
+        res = (ax - lam * x).abs().max() / lam.abs()
+        x = ax / lam
+        i += 1
+        if not bool(res > tol):
+            break
+    return lam, x, i

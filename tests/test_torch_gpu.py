@@ -2,7 +2,8 @@
 complex64 solve and sweep through the kernels against the same on the CPU,
 a complex128 sweep on the card against a committed library, and the
 Hermitian-tensor dielectrics on the card (complex64 against complex128
-applies, a complex128 cross-DoF sweep against the CPU's).
+applies, a complex128 cross-DoF sweep against the CPU's), and the Davidson
+and ``"mixed"`` solver variants on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -27,6 +28,7 @@ from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.operators import dielectric
 from pcx_torch.operators.dft import dft_mats
+from pcx_torch.solvers import rayleigh_ritz as rr
 
 pytestmark = pytest.mark.gpu
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,6 +123,28 @@ def test_complex64_solve_on_cuda_matches_cpu():
     np.testing.assert_allclose(r_gpu.omega_re, r_cpu.omega_re, atol=5e-5)
 
 
+@pytest.mark.parametrize("solver", ["davidson", "mixed"])
+def test_complex64_solver_variant_on_cuda_matches_cpu(solver):
+    """sc_curv N=16: Davidson (K2 in the operator, capped at 200 iterations:
+    it has no FLOOR rule) and ``"mixed"`` (K2 and, with rr_gram="pallas",
+    K3; never K1) on the card reach the CPU solve's frequencies to the
+    complex64 golden scale, 3.5e-3."""
+    dev = _cuda()
+    cfg = ProblemConfig(n=16, lattice="sc_curv", nev=6)
+    alpha = np.array([np.pi, 0.0, 0.0])
+    kw = dict(dtype=torch.complex64, solver=solver, maxiter=200,
+              solver_opts={"rr_gram": "pallas"} if solver == "mixed" else {})
+    n1, n2, n3 = resid_precond.launches, axis_dft.launches, gram9.launches
+    r_gpu = KPointSolver(cfg, device=dev, **kw).solve(alpha)
+    assert axis_dft.launches > n2
+    assert resid_precond.launches == n1
+    assert (gram9.launches > n3) is (solver == "mixed")
+    r_cpu = KPointSolver(cfg, device="cpu", **kw).solve(alpha)
+    assert r_gpu.status in (1, 2, 5) and r_cpu.status in (1, 2, 5)
+    assert not r_gpu.report.spurious and not r_cpu.report.spurious
+    np.testing.assert_allclose(r_gpu.omega_re, r_cpu.omega_re, atol=3.5e-3)
+
+
 def test_k3_cuda_matches_plain():
     """K3 at the sweep's width with a ragged D tail (the last chunk holds
     37 + 2048 * k columns), against the plain version: f32 chunk partials
@@ -165,6 +189,25 @@ def test_k3_cuda_error_vs_complex128(m, d, chunk):
     err_p = float((gram9_plain(*blocks, chunk=chunk) - want).abs().max())
     assert err_p <= 1e-5 * scale
     assert err_k <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("m", [16, 48])
+def test_solver_grams_on_cuda_vs_complex128(m):
+    """The dense algebra's complex64 Grams (``gram_f64`` and the projection
+    ``gram``) at the main path's D against complex128: within 1e-6 of
+    max|G|.  With 65536-column partials and ``gram`` as one GEMM they
+    carried 3.6e-6 - 5.3e-6, which set the solvers' residual floor."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    d = 3 * 120 ** 3
+    x, y = (torch.randn((m, d), generator=gen, device=dev,
+                        dtype=torch.complex64) for _ in range(2))
+    want = x.to(torch.complex128).conj() @ y.to(torch.complex128).T
+    scale = float(want.abs().max())
+    assert float((rr.gram_f64(x, y) - want).abs().max()) <= 1e-6 * scale
+    assert float((rr.gram(x, y).to(torch.complex128) - want).abs().max()
+                 ) <= 1e-6 * scale
 
 
 def _sweep(tmp_path, name, device, **kw):

@@ -148,14 +148,20 @@ def test_eigh_split_and_pencil_match_embeddings(rng):
 
 
 def _pair_solvers(lattice, n, nev, jax_dtype, torch_dtype, jax_kw=None,
-                  torch_opts=None, diel_type="chiral", eps_opt=0, **kw):
-    """A JAX pair-layout solver and a port solver on its state.  ``kw``
-    (tol, maxiter, solver) goes to both."""
+                  torch_opts=None, diel_type="chiral", eps_opt=0, impl="rs",
+                  **kw):
+    """A JAX solver (the pair-layout route, or with ``impl="complex"`` the
+    complex one) and a port solver on its state.  ``kw`` (tol, maxiter,
+    solver) goes to both."""
     cfg = JaxConfig(n=n, lattice=lattice, nev=nev, diel_type=diel_type,
                     eps_opt=eps_opt)
-    js = JaxSolver(cfg, dtype=jax_dtype, solver_impl="rs",
+    js = JaxSolver(cfg, dtype=jax_dtype, solver_impl=impl,
                    real_boundary=True, refine=False, **(jax_kw or {}), **kw)
-    f = js._f64
+    # the complex route builds no device symbols: take the 1-D parts from
+    # a pair-layout solver of the same config
+    f = (js if impl == "rs" else
+         JaxSolver(cfg, dtype=jax_dtype, solver_impl="rs",
+                   real_boundary=True, refine=False))._f64
     # The JAX one-shot CPU program applies no warm cap and no doom check.
     opts = {"warm_maxiter": 0, "doom_check": False, **(torch_opts or {})}
     if diel_type == "chiral":
@@ -515,10 +521,11 @@ def test_solver_rejects_unknown_options_and_dielectrics():
     with pytest.raises(KeyError, match="Unknown dielectric type"):
         KPointSolver(ProblemConfig(n=8, diel_type="pseudochiral_nope"),
                      device="cpu", dtype=torch.complex128)
-    for name in ("mixed", "davidson", "jd"):
-        with pytest.raises(NotImplementedError, match="P8"):
-            KPointSolver(cfg, device="cpu", dtype=torch.complex128,
-                         solver=name)
+    for name in ("softlock", "nolock", "mixed", "descent", "davidson", "jd"):
+        ts = KPointSolver(cfg, device="cpu", dtype=torch.complex128,
+                          solver=name)
+        assert ts.solver == name
+        JaxSolver(JaxConfig(n=8, lattice="sc_curv", nev=4), solver=name)
     with pytest.raises(ValueError, match="unknown solver 'hardlock'"):
         KPointSolver(cfg, device="cpu", dtype=torch.complex128,
                      solver="hardlock")
