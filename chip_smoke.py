@@ -50,11 +50,8 @@ failure ends the run with a non-zero exit:
              index 10 with solver="softlock" and with solver="descent", and
              the chiral point of phase 7 with solver="nolock" (the two
              variants may also end MAXITER: the gates still decide).
-             The indices keep |alpha| > 1: below it the penalty weight is
-             (2 pi / |alpha|)^2, and at N=120 a COLD complex64 solve of
-             indices 0-2 stalls at a residual that the sweep's acceptance
-             gate refuses, with every dielectric (measured on an H100;
-             warm solves at indices 3-4 pass).
+             The indices keep |alpha| > 1, where a point costs least; the
+             rows next to Gamma are phase 14's.
 12. solvers-32 — every eigensolver of pcx at sc_curv chiral N=32,
              alpha=(pi,0,0), complex64, tol 1e-3, nev=6, maxiter 200 (the
              protocol of tools/tpu_smoke.py): ``KPointSolver`` with solver
@@ -75,18 +72,47 @@ failure ends the run with a non-zero exit:
 13. solvers-120 — single cold solves at the full width of phase 7 (sc_curv
              chiral N=120, nev=10, alpha=(pi,0,0), complex64), gated like it
              against the committed row: solver="mixed" with
-             rr_gram="pallas", "davidson" and "jd" (these two may end
+             rr_gram="pallas", "davidson" and "jd" (capped at 80 and 20
+             iterations, past the flattening of their residuals; these two
+             may end
              MAXITER: they have no FLOOR rule, and the complex64 residual
              floor lies above tol); the launch counts and peak device memory
              of each solve.  Each launches K2, "mixed" K3 too and never K1.
+14. near-gamma — ROADMAP F2: a copy of each of output_c64/{chiral,
+             pseudochiral_trivial,pseudochiral_crossdof}/bandgap_sc_curv.json
+             with rows 0-3 (|alpha| = 0.05 pi - 0.2 pi, next to Gamma) reset
+             to pending, resumed in this process by ``bandgap`` (N=120,
+             complex64, rr_gram="pallas", refine="light", indices=None: the
+             runner's settings); every row CONVERGED or FLOOR, inside the
+             1e-3 spurious gate and within 3.5e-3 of the committed row, with
+             its iterations, seconds and whether the light refine accepted
+             it or the sweep escalated to the complex128 refine.  K1, K2 and
+             K3 must all launch.
+15. runner  — ``python -m pcx_torch.run_sweep --n 120 --lattice fcc --diel
+             chiral --output <copy> --max-rounds 1`` in a subprocess on a
+             copy of output_c64/chiral/bandgap_fcc.json with rows 9-11
+             pending: exit 0, rows 9-11 within 3.5e-3 of the committed ones,
+             the other rows untouched, the heartbeat file touched; then
+             ``python -m pcx_torch check`` on the result (exit 0, every row
+             computed) and ``python -m pcx_torch eigen1p --n 32 --lattice
+             sc_curv --alpha 1,0,0`` (exit 0), both on the card.
+16. keywords — the point of phase 7 with the ``KPointSolver`` keywords,
+             each gated like phase 7: x0_mode="coarse" (the 60^3 twin's time
+             printed beside phase 7's plane-wave start), x0_mode="random",
+             solver_impl="complex" with fft_mode="matmul" (K2) and "fft"
+             (cuFFT), and refine=False.  K1 and K2 must launch in the
+             two-grid start's run.
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
 route), reset again just before phase 9 and read after it (K1, K2 and
 K3 must all have launched), and once more before phase 11: read after its
 sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
-solve of phase 13.  The ``{"kernels": [...]}`` line gives, per
-kernel, the sweep's launches (and ``launches_solvers``: phase 13's), the
+solve of phase 13, around phase 14 and around each solve of phase 16.
+The ``{"kernels": [...]}`` line gives, per
+kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
+``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
+two-grid start's of phase 16), the
 kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -132,7 +158,20 @@ SMALL_N, SMALL_NEV, SMALL_TOL, SMALL_MAXITER = 32, 6, 1e-3, 200
 KPS_SOLVERS = ("softlock", "nolock", "mixed", "descent", "davidson", "jd")
 PM_STEPS = 1000
 FULL_SOLVES = (("mixed", {"rr_gram": "pallas"}, 300),
-               ("davidson", {}, 120), ("jd", {}, 30))
+               ("davidson", {}, 80), ("jd", {}, 20))
+# Phase 14: the rows next to Gamma of each dielectric; phase 15: the rows the
+# runner resumes; phase 16: the KPointSolver keywords on phase 7's point.
+NEAR_GAMMA_ROWS = [0, 1, 2, 3]
+NEAR_GAMMA_DIELS = ("chiral", TRIVIAL, CROSSDOF)
+RUNNER_ROWS = [9, 10, 11]
+KEYWORD_SOLVES = (
+    ("x0_mode='coarse'", {"x0_mode": "coarse"}),
+    ("x0_mode='random'", {"x0_mode": "random"}),
+    ("solver_impl='complex' fft_mode='matmul'",
+     {"solver_impl": "complex", "fft_mode": "matmul"}),
+    ("solver_impl='complex' fft_mode='fft'",
+     {"solver_impl": "complex", "fft_mode": "fft"}),
+    ("refine=False", {"refine": False}))
 
 FAIL = 1
 
@@ -486,7 +525,7 @@ def gate(kps, alpha, res, golden, tag: str, maxiter_ok: bool = False) -> str:
     return ""
 
 
-def phase_single(dev, n: int = N, golden: bool = True) -> None:
+def phase_single(dev, n: int = N, golden: bool = True) -> tuple:
     from pcx_torch.bandstructure import KPointSolver
     from pcx_torch.config import ProblemConfig
     kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=NEV),
@@ -500,6 +539,7 @@ def phase_single(dev, n: int = N, golden: bool = True) -> None:
                else None, "k=19")
     if why:
         fail(f"single point: {why}")
+    return res.iterations, res.wall_time
 
 
 def phase_warm(dev, n: int = N, golden: bool = True) -> None:
@@ -842,6 +882,220 @@ def phase_solvers_full(dev, n: int = N, golden: bool = True) -> dict:
     return total
 
 
+def reset_rows(src: str, dst: str, key: str, rows) -> dict:
+    """Copy the band library ``src`` to ``dst`` with ``rows`` of the record
+    ``key`` reset to pending ([0, 0], zero frequencies); returns the
+    original library."""
+    with open(src) as f:
+        lib = json.load(f)
+    out = json.loads(json.dumps(lib))
+    for i in rows:
+        out[f"{key}_iterations"][i] = [0, 0]
+        out[f"{key}_frequencies"][i] = [0.0] * NEV
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as f:
+        json.dump(out, f, indent=4)
+    return lib
+
+
+def phase_near_gamma(dev, n: int = N, golden: bool = True) -> None:
+    """Phase 14 (F2): resume sc_curv rows NEAR_GAMMA_ROWS of each
+    dielectric's committed library with the runner's settings and gate
+    every row; all rows are printed before a failure ends the phase."""
+    from pcx_torch.bandstructure import bandgap
+    from pcx_torch.lattices import k_path
+    from pcx_torch.metrics import load_jsonl
+    from pcx_torch.solvers.lobpcg import Status
+    key = f"sc_curv_{n}"
+    alphas = k_path("sc_curv")
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="pcx_near_gamma_") as out:
+        for diel_type in NEAR_GAMMA_DIELS:
+            path = os.path.join(out, diel_type, "bandgap_sc_curv.json")
+            ref = reset_rows(os.path.join(HERE, "output_c64", diel_type,
+                                          "bandgap_sc_curv.json"), path, key,
+                             NEAR_GAMMA_ROWS)
+            metrics = os.path.join(out, f"{diel_type}.jsonl")
+            print(f"phase near-gamma: bandgap sc_curv {diel_type} N={n} "
+                  f"complex64 rr_gram='pallas' refine='light', resuming "
+                  f"rows {NEAR_GAMMA_ROWS}", flush=True)
+            log = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(log):
+                err = bandgap(n=n, lattice="sc_curv", diel_type=diel_type,
+                              nev=NEV, dtype=torch.complex64, device=dev,
+                              output_dir=out, metrics_path=metrics,
+                              indices=None, verbose=True,
+                              solver_opts={"rr_gram": "pallas"},
+                              solver_kw={"refine": "light"})
+            wall = time.time() - t0
+            text = log.getvalue()
+            for line in text.splitlines():
+                print(f"    {line}", flush=True)
+            recs = load_jsonl(metrics) if os.path.exists(metrics) else []
+            with open(path) as f:
+                lib = json.load(f)
+            if err:
+                problems.append(f"{diel_type}: failed indices {err}")
+            for i in NEAR_GAMMA_ROWS:
+                tag = f"{diel_type} k={i}"
+                rec = next((r for r in recs
+                            if np.allclose(r["alpha"], alphas[i])), None)
+                if rec is None or lib[f"{key}_iterations"][i][0] <= 0:
+                    print(f"  {tag}: not computed "
+                          f"{lib[f'{key}_iterations'][i]}", flush=True)
+                    problems.append(f"{tag}: not computed")
+                    continue
+                row = np.array(lib[f"{key}_frequencies"][i])
+                spur = float(np.abs(np.array(rec["omega_pnt"])
+                                    - np.array(rec["omega"])).max())
+                gold = (float(np.abs(row - np.array(
+                    ref[f"{key}_frequencies"][i])).max())
+                    if golden else float("nan"))
+                how = ("escalated to the complex128 refine"
+                       if f"k={i}: f64 re-validation PASSED" in text
+                       else "light refine accepted")
+                if f"Warm-started k={i} failed" in text:
+                    how += "; warm solve rejected, cold retry"
+                status = Status(rec["status"]).name
+                print(f"  {tag}: status {status} iters {rec['iterations']} "
+                      f"wall {rec['wall_s']:.3f} s "
+                      f"({1e3 * rec['wall_s'] / max(rec['iterations'], 1):.1f}"
+                      f" ms/iter) max|omega-omega_re| {spur:.3e} "
+                      f"max|omega - committed| {gold:.3e}; {how}",
+                      flush=True)
+                if rec["status"] not in (Status.CONVERGED, Status.FLOOR):
+                    problems.append(f"{tag}: status {status}")
+                if not np.array_equal(row, np.array(rec["omega"])):
+                    problems.append(f"{tag}: the library read back differs "
+                                    f"from the solve's frequencies")
+                if not spur <= SPURIOUS_TOL:
+                    problems.append(f"{tag}: spurious ({spur:.3e})")
+                if golden and not gold <= GOLDEN_TOL:
+                    problems.append(f"{tag}: {gold:.3e} from the committed "
+                                    f"row")
+            print(f"  {diel_type}: {len(NEAR_GAMMA_ROWS)} rows in "
+                  f"{wall:.3f} s", flush=True)
+    if problems:
+        fail(f"near-gamma: {'; '.join(problems)}")
+
+
+def run_cmd(cmd, env=None, timeout: float = 600) -> subprocess.CompletedProcess:
+    """Run ``cmd`` from the checkout in a session of its own; on a timeout
+    kill the whole session (the runner's worker too) and fail."""
+    p = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        fail(f"{' '.join(cmd[1:4])}: no end within {timeout:.0f} s")
+    return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def phase_runner(n: int = N, golden: bool = True) -> None:
+    """Phase 15: the production runner in a subprocess on a copy of the fcc
+    library with RUNNER_ROWS pending, then ``check`` and ``eigen1p`` of the
+    command-line launcher."""
+    key = f"fcc_{n}"
+    with tempfile.TemporaryDirectory(prefix="pcx_runner_") as tmp:
+        out = os.path.join(tmp, "out")
+        path = os.path.join(out, "chiral", "bandgap_fcc.json")
+        ref = reset_rows(os.path.join(HERE, "output_c64", "chiral",
+                                      "bandgap_fcc.json"), path, key,
+                         RUNNER_ROWS)
+        env = dict(os.environ, TMPDIR=tmp)
+        hb = os.path.join(tmp, f"pcx_hb_fcc{n}_chiral.hb")
+        cmd = [sys.executable, "-m", "pcx_torch.run_sweep", "--n", str(n),
+               "--lattice", "fcc", "--diel", "chiral", "--output", out,
+               "--max-rounds", "1"]
+        print(f"phase runner: {' '.join(cmd[1:])} (rows {RUNNER_ROWS} "
+              f"pending)", flush=True)
+        t0 = time.time()
+        r = run_cmd(cmd, env=env)
+        wall = time.time() - t0
+        for line in (r.stdout + r.stderr).splitlines()[-12:]:
+            print(f"    {line}", flush=True)
+        print(f"  run_sweep: exit {r.returncode}, {wall:.3f} s for "
+              f"{len(RUNNER_ROWS)} rows", flush=True)
+        if r.returncode != 0:
+            fail(f"run_sweep exited {r.returncode}")
+        if not os.path.exists(hb):
+            fail("run_sweep: the worker never touched the heartbeat file")
+        with open(path) as f:
+            lib = json.load(f)
+        for i in range(len(ref[f"{key}_iterations"])):
+            row = np.array(lib[f"{key}_frequencies"][i])
+            gold = np.array(ref[f"{key}_frequencies"][i])
+            if i not in RUNNER_ROWS:
+                if lib[f"{key}_iterations"][i] != ref[f"{key}_iterations"][i] \
+                        or not np.array_equal(row, gold):
+                    fail(f"run_sweep changed row {i}, which was computed")
+                continue
+            it, sec = lib[f"{key}_iterations"][i]
+            dev_i = float(np.abs(row - gold).max()) if golden else 0.0
+            print(f"  k={i}: iters {it:.0f} wall {sec:.3f} s "
+                  f"max|omega - committed| {dev_i:.3e}", flush=True)
+            if it <= 0 or not dev_i <= GOLDEN_TOL:
+                fail(f"run_sweep row {i}: iterations {it}, {dev_i:.3e} from "
+                     f"the committed row")
+
+        cmd = [sys.executable, "-m", "pcx_torch", "check", "--n", str(n),
+               "--lattice", "fcc", "--output", out]
+        r = run_cmd(cmd, timeout=300)
+        print(f"  check: exit {r.returncode}: {r.stdout.strip()}", flush=True)
+        if r.returncode != 0 or "computed without errors" not in r.stdout:
+            fail(f"check: exit {r.returncode}, {r.stdout + r.stderr}")
+    cmd = [sys.executable, "-m", "pcx_torch", "eigen1p", "--n", "32",
+           "--lattice", "sc_curv", "--alpha", "1,0,0"]
+    t0 = time.time()
+    r = run_cmd(cmd, timeout=300)
+    tail = [ln for ln in r.stdout.splitlines() if ln.startswith("n = ")]
+    print(f"  eigen1p: exit {r.returncode} in {time.time() - t0:.3f} s: "
+          f"{tail[-1] if tail else ''}", flush=True)
+    if r.returncode != 0 or not tail:
+        fail(f"eigen1p: exit {r.returncode}, {r.stderr[-2000:]}")
+
+
+def phase_keywords(dev, single, n: int = N, golden: bool = True) -> dict:
+    """Phase 16: the KPointSolver keywords on the cold point of phase 7,
+    each solve gated like it; ``single`` is phase 7's (iterations, wall).
+    Returns the kernel launches of the two-grid start's run."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    alpha = np.array([np.pi, 0.0, 0.0])
+    cfg = ProblemConfig(n=n, lattice="sc_curv", nev=NEV)
+    ref = golden_row("sc_curv", n, 19) if golden else None
+    print(f"phase keywords: sc_curv chiral N={n} alpha=(pi,0,0) cold "
+          f"complex64; phase 7's plane-wave start took {single[0]} "
+          f"iterations, {single[1]:.3f} s", flush=True)
+    diel, coarse = None, None
+    for tag, kw in KEYWORD_SOLVES:
+        kps = KPointSolver(cfg, device=dev, dtype=torch.complex64, diel=diel,
+                           **kw)
+        diel = kps.diel
+        kmod.reset_launches()
+        res = kps.solve(alpha, seed=0, validate_result=False)
+        counts = kmod.launches()
+        extra = ""
+        if kps.x0_mode == "coarse":
+            coarse = counts
+            extra = (f"; the {kps._coarse_n}^3 coarse solve took "
+                     f"{kps.last_x0_wall:.3f} s of the wall")
+        print(f"  {tag}: launches {counts}{extra}", flush=True)
+        why = gate(kps, alpha, res, ref, tag)
+        if why:
+            fail(f"keywords {tag}: {why}")
+        if dev.type == "cuda" and kps.x0_mode == "coarse" and not (
+                counts["resid_precond"] and counts["axis_dft"]):
+            fail(f"keywords {tag}: K1 or K2 never launched: {counts}")
+        del kps, res
+    return coarse
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -856,7 +1110,7 @@ def main() -> None:
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)
     kmod.reset_launches()
-    phase_single(dev)
+    single = phase_single(dev)
     counts = kmod.launches()
     if not (counts["resid_precond"] and counts["axis_dft"]):
         fail(f"K1 or K2 never launched in the single point: {counts}")
@@ -913,6 +1167,23 @@ def main() -> None:
     print(f"phase launches: {counts} in the solves of phase 13", flush=True)
     for rec in kernels:
         rec["launches_solvers"] = counts[rec["name"]]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kmod.reset_launches()
+    phase_near_gamma(dev)
+    counts = kmod.launches()
+    print(f"phase launches: {counts} in the near-Gamma sweeps of phase 14 "
+          f"(rr_gram='pallas', refine='light'); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    for rec in kernels:
+        rec["launches_near_gamma"] = counts[rec["name"]]
+    if not all(rec["launches_near_gamma"] > 0 for rec in kernels):
+        fail(f"a kernel never launched in the near-Gamma sweeps: {counts}")
+    phase_runner()
+    counts = phase_keywords(dev, single)
+    for rec in kernels:
+        rec["launches_coarse_start"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 The single-k-point solve of pcx (``KPointSolver.solve``, with every solver
 of pcx: the LOBPCG variants, Davidson and Jacobi-Davidson), the band sweep
-(``bandgap``) and the eigensolver library (``pcx_torch.solvers``) on one
+(``bandgap``), its production runner (``python -m pcx_torch.run_sweep``
+under ``pcx_torch.supervisor``), the command-line launcher (``python -m
+pcx_torch``) and the eigensolver library (``pcx_torch.solvers``) on one
 NVIDIA H100, for every dielectric of pcx:
 complex64 iterate, complex128 refine and validation, and the three Pallas
 TPU kernels of that path rewritten as CUDA C++ for sm_90a

@@ -21,7 +21,16 @@ K1, whatever the dielectric; with
 ``solver_opts={"rr_gram": "pallas"}`` the Rayleigh-Ritz Gram of the LOBPCG
 forms runs kernel K3 (any dtype).  On CPU tensors the wrappers take their plain PyTorch
 versions.  The refine runs in complex128 with
-torch.fft, as the JAX refine runs its f64 pair operator with XLA products.
+torch.fft, as the JAX refine runs its f64 pair operator with XLA products;
+``refine="light"`` validates in the iterate's dtype through the matmul DFT
+(K2), with complex128-accumulated Grams.
+
+``KPointSolver`` takes every keyword of the JAX package's constructor:
+``refine``, ``x0_mode`` (plane-wave, random or two-grid cold starts),
+``fft_mode`` and ``solver_impl`` (the complex LOBPCG family of
+``solvers.lobpcg``) mean what they mean there; the TPU-only
+``real_boundary``, ``apply_chunk`` and ``segment_iters`` are refused.
+``bandgap_wnk_check`` and ``bandgap_history_check`` read a band library.
 """
 
 from __future__ import annotations
@@ -43,11 +52,12 @@ from pcx_torch.kernels.resid_precond import resid_precond
 from pcx_torch.operators import maxwell
 from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.blocks import h_block, h_block_planes
-from pcx_torch.operators.dft import dft_mats
+from pcx_torch.operators.dft import dft_mats, resample3, upsample_mat
 from pcx_torch.operators import dielectric as diel_mod
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.davidson import davidson_sep, jd_sep
-from pcx_torch.solvers.lobpcg import Status
+from pcx_torch.solvers.lobpcg import (Status, descent_sep, lobpcg_sep,
+                                      lobpcg_sep_mixedprecision)
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
 from pcx_torch.metrics import RunLogger
 from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, norms,
@@ -75,7 +85,54 @@ LOBPCG_ONLY_OPTS = ("rr_gram", "col_patience", "lam_tol", "lam_patience",
 
 # Doom-check marks of a warm solve: the first at 24 iterations, then every
 # 40 (the JAX segmented solve's boundaries, bandstructure.py:1469-1503).
+# Every solve of the pair-layout route touches the heartbeat file there.
 DOOM_FIRST, DOOM_EVERY = 24, 40
+
+# The complex64 period of the H X / H P refresh at |alpha| >= 1 (and at
+# Gamma), where the penalty weight is PNT_FAR = 4 pi^2.
+REFRESH_EVERY, PNT_FAR = 8, 4.0 * np.pi ** 2
+
+
+def refresh_period(pnt: float, period: int = REFRESH_EVERY) -> int:
+    """The complex64 refresh period of a k-point with penalty weight
+    ``pnt``.  Between refreshes the solver carries H X and H P through the
+    Rayleigh-Ritz mixes, whose complex64 rounding grows with the operator's
+    norm, about pnt |D|^2.  Near Gamma pnt = (2 pi / |alpha|)^2 exceeds
+    PNT_FAR by up to 40x (k_path index 0), and with the period of |alpha|
+    >= 1 a cold solve there drifts off its best point and runs to maxiter
+    (ROADMAP F2).  The period shrinks by PNT_FAR / pnt, so that the drift
+    per period stays what it is at |alpha| >= 1.  A port-only rule: the
+    JAX solver keeps 8 everywhere."""
+    if pnt <= PNT_FAR:
+        return period
+    return max(1, int(period * PNT_FAR / pnt))
+
+
+# Values of the JAX constructor's keywords (pcx/bandstructure.py:171-352).
+X0_MODES = ("plane_wave", "random", "coarse")
+FFT_MODES = ("auto", "fft", "matmul")
+SOLVER_IMPLS = ("auto", "rs", "complex")
+REFINES = (None, True, False, "f64", "light")
+# Keywords of the JAX constructor that exist only to work around the TPU
+# backend (the real-boundary encoding, column-chunked applies, segmented
+# programs): refused, see ROADMAP.md "Do not port".
+TPU_ONLY = ("real_boundary", "apply_chunk", "segment_iters")
+
+
+def _heartbeat() -> None:
+    """Touch the liveness file named by $PCX_HEARTBEAT, if set, so that a
+    supervisor (``pcx_torch.supervisor``) tells a solve that iterates from
+    a hung worker: the library file advances once per k-point only (pcx
+    bandstructure._heartbeat)."""
+    path = os.environ.get("PCX_HEARTBEAT")
+    if not path:
+        return
+    try:
+        with open(path, "a"):
+            pass
+        os.utime(path)
+    except OSError:
+        pass
 
 
 @dataclasses.dataclass
@@ -107,9 +164,9 @@ def _shift_pnt(alpha, scal: float):
 class KPointSolver:
     """Reusable solver for one (config, dielectric) across k-points.
 
-    ``device`` and ``dtype`` are explicit: complex64 is the GPU production
-    iterate (kernels K1 and K2), complex128 the CPU parity iterate.  Every
-    validation runs the complex128 Rayleigh-Ritz refine.
+    ``device`` (default ``"cuda"``) and ``dtype``: complex64 is the GPU
+    production iterate (kernels K1 and K2), complex128 the CPU parity
+    iterate.
 
     ``solver_opts`` is the dict the JAX package's KPointSolver takes: the
     solver's options (``SOLVER_OPTS``; ``rr_gram="pallas"`` forms the
@@ -128,26 +185,90 @@ class KPointSolver:
     no warm cap and no doom check (pcx/bandstructure.py:372-376, 457-461).
     ``diel``/``parts`` replace the dielectric built from ``cfg`` by
     ``dielectric.build`` and the 1-D symbol parts (see ``from_arrays``).
+
+    The other keywords of the JAX constructor:
+
+    * ``solver_impl``: ``"rs"`` (the default, ``"auto"``, on every device:
+      the pair-layout route of the JAX accelerators, ``lobpcg_rs``) or
+      ``"complex"``, the complex LOBPCG family of ``solvers.lobpcg``
+      (softlock, nolock, mixed with a complex64 preconditioner, descent),
+      the JAX default on the CPU; one solve with no warm cap and no doom
+      check, and it refuses the pair-layout options ``LOBPCG_ONLY_OPTS``.
+      Davidson and JD run ``solvers.davidson`` under either.
+    * ``fft_mode``: the operator's DFT.  ``"matmul"`` is the three-pass
+      matmul DFT (kernel K2 in complex64), ``"fft"`` torch.fft (cuFFT on
+      the card); as in JAX the pair-layout route always takes the matmul
+      DFT, and ``"auto"`` takes it on the card and torch.fft on the CPU.
+    * ``refine``: ``True``, ``"f64"`` or ``None`` (default) validate every
+      solve by the complex128 Rayleigh-Ritz refine (``refine_stats``);
+      ``"light"`` by the refine in the iterate's dtype with
+      complex128-accumulated Grams (``refine_light_stats``); ``False`` by
+      the Rayleigh quotients and residuals of the solver's own Ritz pairs
+      (``stats``).  The JAX package runs ``"light"`` only in its
+      real-boundary mode and takes ``False`` elsewhere; the port has no
+      such mode, so ``"light"`` always means the light refine.
+    * ``x0_mode``: the cold start.  ``"plane_wave"`` (default), ``"random"``
+      (uniform real and imaginary parts from a ``torch.Generator`` seeded
+      with the solve's seed: not the JAX bits), ``"coarse"`` or
+      ``"coarse:<nc>"`` (nc default max(8, n // 2)): solve the k-point on
+      the nc-grid, without validation, and lift the block by trigonometric
+      interpolation (``dft.resample3``); its time counts in the fine
+      solve's wall time (``last_x0_wall``).
+    * ``real_boundary``, ``apply_chunk``, ``segment_iters``: TPU-only
+      (``TPU_ONLY``), refused with ``ValueError`` unless None.
     """
 
-    def __init__(self, cfg: ProblemConfig, *, device, dtype: torch.dtype,
+    def __init__(self, cfg: ProblemConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.complex128,
                  tol: float = TOL, maxiter: int = MAXITER,
                  solver: str = "softlock",
                  solver_opts: Optional[dict] = None,
                  diel: Optional[diel_mod.DielectricOp] = None,
-                 parts: Optional[sym.SymbolParts] = None):
+                 parts: Optional[sym.SymbolParts] = None,
+                 refine=None, x0_mode: str = "plane_wave",
+                 fft_mode: str = "auto", solver_impl: str = "auto",
+                 real_boundary=None, apply_chunk=None, segment_iters=None):
+        tpu_only = [k for k, v in zip(TPU_ONLY, (real_boundary, apply_chunk,
+                                                 segment_iters))
+                    if v is not None]
+        if tpu_only:
+            raise ValueError(
+                f"KPointSolver keywords {tpu_only} work around the TPU "
+                f"backend of pcx and are not ported (ROADMAP.md, "
+                f"'Do not port')")
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
         if dtype not in (torch.complex64, torch.complex128):
             raise ValueError(f"dtype must be complex64 or complex128, "
                              f"got {dtype}")
+        self._coarse_n = None
+        if isinstance(x0_mode, str) and x0_mode.startswith("coarse"):
+            _, _, nc = x0_mode.partition(":")
+            self._coarse_n = int(nc) if nc else max(8, cfg.n // 2)
+            if self._coarse_n >= cfg.n:
+                raise ValueError(f"coarse grid {self._coarse_n} must be "
+                                 f"smaller than n={cfg.n}")
+            x0_mode = "coarse"
+        if x0_mode not in X0_MODES:
+            raise ValueError(f"unknown x0_mode {x0_mode!r}")
+        if fft_mode not in FFT_MODES:
+            raise ValueError(f"unknown fft_mode {fft_mode!r}")
+        if solver_impl not in SOLVER_IMPLS:
+            raise ValueError(f"unknown solver_impl {solver_impl!r}")
+        if refine not in REFINES:
+            raise ValueError(f"unknown refine {refine!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
         self.rdt = real_dtype(dtype)
         self.tol = tol
         self.maxiter = maxiter
-        opts = dict(solver_opts or {})
+        self.x0_mode = x0_mode
+        self.fft_mode = fft_mode
+        self.impl = "rs" if solver_impl == "auto" else solver_impl
+        self.refine = "f64" if refine in (None, True, "f64") else refine
+        self._user_opts = dict(solver_opts or {})
+        opts = dict(self._user_opts)
         self.warm_maxiter = int(opts.pop("warm_maxiter", 150))
         self.doom_check = bool(opts.pop("doom_check", True))
         self.doom_tol = float(opts.pop("doom_tol",
@@ -156,31 +277,45 @@ class KPointSolver:
         if unknown:
             raise ValueError(f"unknown solver_opts {unknown}; supported: "
                              f"{SOLVER_OPTS + SOLVE_OPTS}")
-        refused = sorted(set(opts) & set(LOBPCG_ONLY_OPTS if solver in
-                                         DAVIDSONS else ("subspace",)))
+        not_theirs = ((LOBPCG_ONLY_OPTS if solver in DAVIDSONS
+                       or self.impl == "complex" else ())
+                      + (() if solver in DAVIDSONS else ("subspace",)))
+        refused = sorted(set(opts) & set(not_theirs))
         if refused:
             raise ValueError(f"solver_opts {refused} are not options of "
-                             f"solver {solver!r}")
+                             f"solver {solver!r} (solver_impl="
+                             f"{self.impl!r})")
         if dtype == torch.complex64:
             # complex64 robustness defaults of the JAX solver
             # (bandstructure.py:261-280): two orthogonalization passes,
             # HX/HP refresh every 8 iterations, FLOOR patience 6.
             opts.setdefault("ortho_passes", 2)
-            opts.setdefault("refresh_every", 8)
+            opts.setdefault("refresh_every", REFRESH_EVERY)
             opts.setdefault("floor_patience", 6)
+        # near Gamma the default refresh period shrinks (refresh_period)
+        self._scale_refresh = (dtype == torch.complex64
+                               and "refresh_every" not in self._user_opts
+                               and solver not in DAVIDSONS)
         if solver == "descent":
             opts.setdefault("use_p", False)
         self.solver_opts = opts
         self.solver = solver
         self.locking = solver != "nolock"
         self.last_doom = None   # (it, worst bound) of the last doom bail
+        self.last_x0_wall = 0.0   # seconds of the last coarse start
         ct = (lattices.ct_matrix(cfg.lattice) if cfg.lattice else np.eye(3))
         self.parts = parts if parts is not None else sym.symbol_parts(
             cfg.n, cfg.k, ct, cfg.scal, self.device)
         self.diel = diel if diel is not None else diel_mod.build(
             cfg.diel_type, cfg.n, cfg.lattice, self.device,
             eps_opt=cfg.eps_opt, k=cfg.k)
-        self.dft = dft_mats(cfg.n, dtype, self.device)
+        # The matmul DFT of the light refine, and of the solve unless it
+        # takes torch.fft (pcx/bandstructure.py:327-333).
+        self._mats = dft_mats(cfg.n, dtype, self.device)
+        use_matmul = (fft_mode == "matmul" or self.impl == "rs"
+                      or (fft_mode == "auto" and self.device.type != "cpu"))
+        self.dft = self._mats if use_matmul else None
+        self._coarse_cache = None
 
     @classmethod
     def from_arrays(cls, cfg: ProblemConfig, *, d1, d0, ct, device,
@@ -218,10 +353,46 @@ class KPointSolver:
         gen.manual_seed(seed)
         return gen
 
+    def _coarse(self) -> "KPointSolver":
+        """The coarse-grid twin of ``x0_mode="coarse"``, built at first use:
+        the same lattice, dielectric type, solver and options on the
+        nc-grid, with its own symbols and dielectric, no validation and a
+        plane-wave start.  On the pair-layout route it stops once its Ritz
+        values stop moving (lam_tol 1e-5, patience 2): the start's quality
+        saturates there (pcx bandstructure._coarse)."""
+        if self._coarse_cache is None:
+            opts = dict(self._user_opts)
+            if self.impl == "rs" and self.solver not in DAVIDSONS:
+                opts.setdefault("lam_tol", 1e-5)
+                opts.setdefault("lam_patience", 2)
+            self._coarse_cache = KPointSolver(
+                dataclasses.replace(self.cfg, n=self._coarse_n),
+                device=self.device, dtype=self.dtype, tol=self.tol,
+                maxiter=self.maxiter, solver=self.solver, solver_opts=opts,
+                refine=False, x0_mode="plane_wave", fft_mode=self.fft_mode,
+                solver_impl=self.impl)
+        return self._coarse_cache
+
     def _x0_cold(self, alpha, m: int, seed: int) -> torch.Tensor:
-        """Plane-wave cold start: transverse plane waves at the m/2 lowest
-        vacuum frequencies plus 1e-2 jitter from a generator seeded with
-        ``seed`` (pcx maxwell.plane_wave_cols / plane_wave_scatter)."""
+        """Cold-start block by ``x0_mode``.  The plane-wave start: transverse
+        plane waves at the m/2 lowest vacuum frequencies plus 1e-2 jitter
+        from a generator seeded with ``seed`` (pcx maxwell.plane_wave_cols /
+        plane_wave_scatter).  The two-grid start falls back to a random
+        block when the coarse solve ends NAN or BLOWUP."""
+        if self.x0_mode == "coarse":
+            res = self._coarse().solve(alpha, seed=seed,
+                                       validate_result=False)
+            if res.status in (Status.NAN, Status.BLOWUP):
+                return maxwell.random_block(self._generator(seed),
+                                            self.cfg.n, m, self.dtype,
+                                            self.device)
+            u = torch.as_tensor(upsample_mat(self._coarse_n, self.cfg.n),
+                                device=self.device).to(self.dtype)
+            x = resample3(res.x, u)
+            return x if x.shape[0] == m else self._fit(x, m, seed)
+        if self.x0_mode == "random":
+            return maxwell.random_block(self._generator(seed), self.cfg.n, m,
+                                        self.dtype, self.device)
         d_a = sym.build_curl(self.parts, alpha).cpu().numpy()
         idx, amps = maxwell.plane_wave_cols(d_a, m)
         return maxwell.plane_wave_scatter(idx, amps, self.cfg.n, self.dtype,
@@ -250,30 +421,42 @@ class KPointSolver:
 
         return rp
 
-    def _doom_monitor(self):
-        """Host-side doom check of a warm solve at the marks 24, 64, 104,
-        ...: bail (status MAXITER) when the frequency-error admissibility
-        bound res_i / (doom_tol 4 pi sqrt(max(|lambda_i|, 1))) of a tracked
-        column exceeds 10, or exceeds 1 while improving < 15% since the
-        previous mark (pcx bandstructure.py:238-258, 1486-1503)."""
+    def _doom(self):
+        """Host-side doom check of a warm solve, called at the marks 24, 64,
+        104, ...: bail (status MAXITER) when the frequency-error
+        admissibility bound res_i / (doom_tol 4 pi sqrt(max(|lambda_i|,
+        1))) of a tracked column exceeds 10, or exceeds 1 while improving
+        < 15% since the previous mark (pcx bandstructure.py:238-258,
+        1486-1503)."""
         nev = self.cfg.nev
         prev = [None]
 
-        def monitor(it, res, lambdas):
-            if it < DOOM_FIRST or (it - DOOM_FIRST) % DOOM_EVERY:
-                return False
+        def doomed(it, res, lambdas):
             lam = np.abs(lambdas[:nev].cpu().numpy())
             cap = self.doom_tol * 4.0 * np.pi * np.sqrt(np.maximum(lam, 1.0))
             with np.errstate(invalid="ignore"):
                 viol = res[:nev] / cap
             worst = float(np.nanmax(viol)) if viol.size else 0.0
-            doomed = worst > 10.0 or (prev[0] is not None and worst > 1.0
-                                      and worst > 0.85 * prev[0])
-            if doomed:
+            if worst > 10.0 or (prev[0] is not None and worst > 1.0
+                                and worst > 0.85 * prev[0]):
                 self.last_doom = (it, worst * self.doom_tol)
                 return True
             prev[0] = worst
             return False
+
+        return doomed
+
+    def _monitor(self, warm: bool):
+        """The solver's per-iteration hook: at the doom-check marks it
+        touches the heartbeat (no device read) and, on a warm solve with
+        ``doom_check``, runs the doom check."""
+        doomed = self._doom() if warm and self.doom_check else None
+
+        def monitor(it, res, lambdas):
+            if it < DOOM_FIRST or (it - DOOM_FIRST) % DOOM_EVERY:
+                return False
+            _heartbeat()
+            return doomed is not None and doomed(it, res, lambdas)
 
         return monitor
 
@@ -282,18 +465,30 @@ class KPointSolver:
             torch.cuda.synchronize(self.device)
 
     def solve(self, alpha, x0: Optional[torch.Tensor] = None, seed: int = 0,
-              validate_result: bool = True,
-              verbose: bool = False) -> EigenResult:
+              validate_result: bool = True, verbose: bool = False,
+              raise_on_spurious: bool = True) -> EigenResult:
+        """Solve one k-point from ``x0`` (warm) or a cold start by
+        ``x0_mode``, and validate it by ``refine``.  ``raise_on_spurious``
+        (default True, as in JAX) raises ``SpuriousModeError`` from the
+        validation; False leaves the verdict in ``report.spurious``."""
         cfg = self.cfg
         alpha = np.asarray(alpha, dtype=float)
         m = self.block_width(alpha)
         warm = x0 is not None
+        x0_wall = 0.0
         if x0 is None:
+            t_x0 = time.time()
             x0 = self._x0_cold(alpha, m, seed)
+            if self.x0_mode == "coarse":
+                # the two-grid start's coarse solve counts in the wall time
+                # (time to validated frequencies from scratch)
+                self._sync()
+                x0_wall = time.time() - t_x0
         else:
             x0 = x0.to(device=self.device, dtype=self.dtype)
             if x0.shape[0] != m:
                 x0 = self._fit(x0, m, seed)
+        self.last_x0_wall = x0_wall
 
         self._sync()
         t0 = time.time()
@@ -303,12 +498,15 @@ class KPointSolver:
             return maxwell.ama_bb(v, sy.d_a, sy.b, self.diel, sy.shift,
                                   self.dft)
 
-        if self.solver == "mixed":
+        if self.solver == "mixed" and self.impl == "rs":
             p_func = _p_func_bf16(sy.inv)
         else:
             def p_func(v):
                 return h_block(v, sy.inv)
 
+        opts = self.solver_opts
+        if self._scale_refresh:
+            opts = dict(opts, refresh_every=refresh_period(sy.pnt))
         self.last_doom = None
         if self.solver in DAVIDSONS:
             fn = davidson_sep if self.solver == "davidson" else jd_sep
@@ -316,6 +514,14 @@ class KPointSolver:
                   if k == "subspace"}
             res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
                      maxiter=self.maxiter, **kw)
+        elif self.impl == "complex":
+            # one solve, no warm cap and no doom check, as the JAX complex
+            # route (pcx/bandstructure.py:441-456)
+            fn = {"mixed": lobpcg_sep_mixedprecision,
+                  "descent": descent_sep}.get(self.solver, lobpcg_sep)
+            kw = ({"locking": self.locking} if fn is lobpcg_sep else {})
+            res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
+                     maxiter=self.maxiter, **kw, **opts)
         else:
             # K1 computes the preconditioner in float32: off for "mixed"
             rp = (self._rp_fused(sy.inv, m)
@@ -323,23 +529,28 @@ class KPointSolver:
                   else None)
             limit = (min(self.maxiter, self.warm_maxiter)
                      if warm and self.warm_maxiter > 0 else None)
-            monitor = (self._doom_monitor() if warm and self.doom_check
-                       else None)
             res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
                                 maxiter=self.maxiter, locking=self.locking,
                                 rp_fused=rp, limit=limit,
-                                monitor=monitor, **self.solver_opts)
+                                monitor=self._monitor(warm), **opts)
         self._sync()
-        wall = time.time() - t0
+        wall = time.time() - t0 + x0_wall
+        _heartbeat()
 
         lambdas = res.lambdas.cpu().numpy().astype(float)
         status = res.status
         report = None
         omega = omega_re = None
         if status in (Status.CONVERGED, Status.FLOOR, Status.MAXITER):
-            if validate_result:
-                report, lambdas = self._refine_report(alpha, res.x,
-                                                      verbose=verbose)
+            if validate_result and self.refine:
+                report, lambdas = self._refine_report(
+                    alpha, res.x, verbose=verbose,
+                    raise_on_spurious=raise_on_spurious)
+                omega, omega_re = report.omega_pnt, report.omega_re
+            elif validate_result:
+                report = self._stats_report(
+                    alpha, res.x, lambdas, verbose=verbose,
+                    raise_on_spurious=raise_on_spurious)
                 omega, omega_re = report.omega_pnt, report.omega_re
             else:
                 lam = lambdas[:cfg.nev] - (sy.shift if sy.shift > 0 else 0.0)
@@ -375,9 +586,51 @@ class KPointSolver:
         return (theta.cpu().numpy(), lam_re.cpu().numpy(),
                 res.cpu().numpy())
 
+    def refine_light_stats(self, alpha, x: torch.Tensor):
+        """The light refine (``refine="light"``; pcx ``_refine_light_jit``):
+        ``refine_stats`` with the operator applied in the iterate's dtype
+        through the matmul DFT (kernel K2 in complex64), one full-width
+        ``ama_bb`` and one ``ama`` on the leading nev Ritz vectors, the
+        projected pencil and the quotients accumulated in complex128
+        (``rr.gram_f64``) and solved in complex128.  Returns (theta (m,),
+        lam_re (nev,), res (nev,)) as numpy, theta with the shift
+        included."""
+        cfg, nev = self.cfg, self.cfg.nev
+        shift, pnt = _shift_pnt(alpha, cfg.scal)
+        d_a64 = sym.build_curl(self.parts, alpha)
+        d_a = d_a64.to(self.dtype)
+        b = sym.penalty(d_a64, pnt).to(self.dtype)
+        del d_a64
+        m = x.shape[0]
+        xw = x.to(self.dtype)
+        xf = xw.reshape(m, -1)
+        hx = maxwell.ama_bb(xw, d_a, b, self.diel, shift, self._mats)
+        t = rr.gram_f64(xf, hx.reshape(m, -1))
+        del hx
+        theta, c = rr.pencil_eigh(t, rr.gram_f64(xf, xf))
+        y = rr.mix(c[:, :nev].to(self.dtype), xf)
+        ay = maxwell.ama(y.view((nev,) + x.shape[1:]), d_a, self.diel,
+                         self._mats).reshape(nev, -1)
+
+        def diag_f64(a, b_):
+            return rr.gram_f64(a, b_).diagonal().real
+
+        den = diag_f64(y, y).clamp(min=1e-30)
+        lam_re = diag_f64(y, ay) / den
+        r = ay - (theta[:nev] - shift).to(self.rdt)[:, None] * y
+        res = (diag_f64(r, r) / den).sqrt()
+        return (theta.cpu().numpy(), lam_re.cpu().numpy(),
+                res.cpu().numpy())
+
     def _refine_report(self, alpha, x, verbose=False,
-                       raise_on_spurious=True):
-        theta, lam_re, res = self.refine_stats(alpha, x)
+                       raise_on_spurious=True, mode=None):
+        """(report, theta) of the refine named by ``mode`` (default
+        ``self.refine``: ``"f64"`` or ``"light"``); the sweep escalates a
+        light refine's rejection to ``mode="f64"``."""
+        mode = self.refine if mode is None else mode
+        refine = (self.refine_light_stats if mode == "light"
+                  else self.refine_stats)
+        theta, lam_re, res = refine(alpha, x)
         shift, _ = _shift_pnt(alpha, self.cfg.scal)
         report = validate.recompute(
             theta[:self.cfg.nev], shift=shift, scal=self.cfg.scal,
@@ -385,14 +638,43 @@ class KPointSolver:
             raise_on_spurious=raise_on_spurious)
         return report, theta
 
+    def stats(self, alpha, x: torch.Tensor, lambdas):
+        """Validation statistics of ``refine=False``: the Rayleigh quotients
+        of the leading nev Ritz vectors against the unpenalized operator and
+        their residual norms against the solver's penalized Ritz values
+        ``lambdas`` (shift included), in the iterate's dtype with the
+        solve's DFT (pcx ``stats_core``).  Returns (lam_re, res) as numpy."""
+        nev = self.cfg.nev
+        sy = self.symbols_for(alpha)
+        xs = x[:nev].to(self.dtype)
+        ax = maxwell.ama(xs, sy.d_a, self.diel, self.dft)
+        lam_re = (dots(xs, ax) / dots(xs, xs)).real
+        lam_pen = np.asarray(lambdas, float)[:nev] - (
+            sy.shift if sy.shift > 0 else 0.0)
+        lam_pen = torch.as_tensor(lam_pen, device=self.device).to(self.rdt)
+        res = norms(ax - lam_pen.reshape((-1,) + (1,) * (xs.dim() - 1)) * xs)
+        return lam_re.cpu().numpy(), res.cpu().numpy()
+
+    def _stats_report(self, alpha, x, lambdas, verbose=False,
+                      raise_on_spurious=True):
+        shift, _ = _shift_pnt(alpha, self.cfg.scal)
+        return validate.recompute(
+            np.asarray(lambdas, float)[:self.cfg.nev], shift=shift,
+            scal=self.cfg.scal, stats=self.stats(alpha, x, lambdas),
+            verbose=verbose, raise_on_spurious=raise_on_spurious)
+
     def validate_solution(self, alpha, result: EigenResult,
                           verbose: bool = False,
                           raise_on_spurious: bool = True):
         """Validation report for an existing solve at ``alpha`` (no
-        re-solve)."""
-        return self._refine_report(np.asarray(alpha, dtype=float), result.x,
-                                   verbose=verbose,
-                                   raise_on_spurious=raise_on_spurious)[0]
+        re-solve), by ``refine``."""
+        alpha = np.asarray(alpha, dtype=float)
+        if self.refine:
+            return self._refine_report(alpha, result.x, verbose=verbose,
+                                       raise_on_spurious=raise_on_spurious)[0]
+        return self._stats_report(alpha, result.x, result.lambdas,
+                                  verbose=verbose,
+                                  raise_on_spurious=raise_on_spurious)
 
 
 def _p_func_bf16(inv: sym.HermSymbol):
@@ -413,15 +695,17 @@ def _p_func_bf16(inv: sym.HermSymbol):
     return p_func
 
 
-def eigen_1p(n: int, lattice: str, alpha, *, device,
+def eigen_1p(n: int, lattice: str, alpha, *, device="cuda",
              dtype: torch.dtype = torch.complex128,
              diel_type: str = TYPE_CHIRAL, nev: int = NEV, tol: float = TOL,
              maxiter: int = MAXITER, seed: int = 0,
              solver: str = "softlock", eps_opt: int = 0,
              verbose: bool = True, **solver_kw) -> EigenResult:
-    """Single-k-point solve (reference: numerical_experiments.py:209-247).
-    ``solver`` selects the variant: softlock, nolock, mixed, descent,
-    davidson or jd (see ``KPointSolver``)."""
+    """Single-k-point solve (reference: numerical_experiments.py:209-247),
+    on the card unless ``device`` says otherwise.  ``solver`` selects the
+    variant: softlock, nolock, mixed, descent, davidson or jd; ``solver_kw``
+    takes the other ``KPointSolver`` keywords (``refine``, ``x0_mode``,
+    ...)."""
     cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type, nev=nev,
                         eps_opt=eps_opt)
     kps = KPointSolver(cfg, device=device, dtype=dtype, tol=tol,
@@ -471,7 +755,9 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
     no ``k_batch``/``mesh`` (the sweep is serial on one device).
     ``solver_opts`` is the JAX package's dict (e.g.
     ``{"rr_gram": "pallas"}``); ``solver_kw`` goes to ``KPointSolver``
-    (e.g. ``{"solver": "nolock"}``).
+    (e.g. ``{"solver": "nolock"}`` or ``{"refine": "light"}``, the
+    production runner's default: a rejection by the light refine is
+    re-validated by the complex128 refine before the cold retry).
     """
     cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type,
                         eps_opt=eps_opt, nev=nev)
@@ -481,8 +767,7 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
     alphas = lattices.k_path(lattice, gap=gap)
     n_k = alphas.shape[0]
 
-    suffix = str(eps_opt) if eps_opt else ""
-    path = f"{output_dir}/{diel_type}/bandgap_{lattice}{suffix}.json"
+    path = _library_path(output_dir, diel_type, lattice, eps_opt)
     lib = BandLibrary(path, lattice, n, n_k, nev)
     logger = RunLogger(metrics_path, echo=False)
 
@@ -517,9 +802,7 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
         """Raise unless the solve is acceptable: CONVERGED or FLOOR (or
         MAXITER with a passing validation), not spurious, and every tracked
         band's frequency-error bound res * scal^2 / (8 pi^2 omega) within
-        2e-3 (pcx bandstructure.py:1656-1698).  Every port solve validates
-        with the complex128 refine, so pcx's ``_accept_or_escalate``, which
-        only escalates a "light" (working-precision) refine, is this."""
+        2e-3 (pcx bandstructure.py:1656-1698)."""
         stats = (f" [status={Status(result.status).name} "
                  f"iters={result.iterations} wall={result.wall_time:.1f}s]")
         ok = result.status in (Status.CONVERGED, Status.FLOOR)
@@ -544,6 +827,38 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
                     f"(band {int(np.argmax(bound))}; subspace likely "
                     f"missing a near-degenerate direction){stats}")
 
+    def _accept_or_escalate(i, result):
+        """``_accept``, with one escalation (pcx bandstructure.py:
+        1700-1734): when the light refine rejects a solve on the spurious
+        gate or the frequency-error bound, re-validate it with the
+        complex128 refine before paying the cold retry, since the light
+        refine's statistics sit at the complex64 noise floor.  Returns the
+        result to commit (its report replaced after an escalation); raises
+        like ``_accept`` when the complex128 refine rejects it too."""
+        try:
+            _accept(result)
+            return result
+        except RuntimeError as e:
+            msg = str(e)
+            if (solver.refine != "light"
+                    or not ("under-converged" in msg or "spurious" in msg)):
+                raise
+            print(f"{YELLOW}k={i}: light-refine gate failed ({e}); "
+                  f"re-validating with the f64 refine{RESET}")
+            report, _theta = solver._refine_report(
+                alphas[i], result.x, raise_on_spurious=False, mode="f64")
+            r2 = dataclasses.replace(result, report=report,
+                                     omega=report.omega_pnt,
+                                     omega_re=report.omega_re)
+            _accept(r2)
+            print(f"{GREEN}k={i}: f64 re-validation PASSED — accepting "
+                  f"(light-refine false rejection){RESET}")
+            return r2
+
+    # A light refine leaves a spurious verdict to _accept_or_escalate (the
+    # JAX solve raises it before the escalation can see it).
+    spurious_kw = ({"raise_on_spurious": False}
+                   if solver.refine == "light" else {})
     last_commit_t = [time.time()]
 
     def _commit(i, result):
@@ -593,8 +908,9 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
             try:
                 result = solver.solve(alphas[i],
                                       x0=(x_prev if warm else None),
-                                      seed=_seed_for(i), verbose=False)
-                _accept(result)
+                                      seed=_seed_for(i), verbose=False,
+                                      **spurious_kw)
+                result = _accept_or_escalate(i, result)
             except Exception as e:
                 # One cold retry of a failed warm solve.  It runs after this
                 # handler exits: inside it the live traceback pins the
@@ -609,8 +925,8 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
                 x_prev = None   # free the warm block before re-solving
                 result = solver.solve(alphas[i], x0=None,
                                       seed=_seed_for(i) + 10007,
-                                      verbose=False)
-                _accept(result)
+                                      verbose=False, **spurious_kw)
+                result = _accept_or_escalate(i, result)
             _commit(i, result)
         except Exception as e:   # NaN, blow-up, spurious, RR failure
             # Numerical failures are recorded as [-1,-1] and the sweep goes
@@ -651,3 +967,57 @@ def _open_library(path: str, lattice: str, n: int, gap=None):
                 gap = len(rows) // n_seg
     alphas = lattices.k_path(lattice, gap=gap)
     return BandLibrary(path, lattice, n, alphas.shape[0], NEV), alphas
+
+
+def _library_path(output_dir: str, diel_type: str, lattice: str,
+                  eps_opt: int) -> str:
+    suffix = str(eps_opt) if eps_opt else ""
+    return f"{output_dir}/{diel_type}/bandgap_{lattice}{suffix}.json"
+
+
+def bandgap_wnk_check(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
+                      eps_opt: int = 0, output_dir: str = "output",
+                      indices=(), gap: Optional[int] = None):
+    """Print and return (alpha, [iterations, runtime], frequencies) of
+    selected k-points of a band library (reference: bandgap_wnk_check,
+    numerical_experiments.py:254-276; pcx bandstructure.py:1897)."""
+    lib, alphas = _open_library(
+        _library_path(output_dir, diel_type, lattice, eps_opt), lattice, n,
+        gap)
+    out = []
+    for i in indices:
+        a = alphas[i] / np.pi
+        it = lib.iterations[i]
+        freq = np.asarray(lib.frequencies[i])
+        print(f"Index = {i}, wnk = ({a[0]:<6.3f}, {a[1]:<6.3f}, "
+              f"{a[2]:<6.3f})pi.")
+        print(f"Iterations = {int(it[0]):4d}, runtime = {it[1]:6.3f}s.")
+        print("List of frequencies follows as:")
+        print(freq)
+        out.append((alphas[i], it, freq))
+    return out
+
+
+def bandgap_history_check(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
+                          eps_opt: int = 0, output_dir: str = "output",
+                          gap: Optional[int] = None):
+    """Report the failed and the uncomputed k-points of a band library;
+    returns (failed, empty), or None when the library does not exist
+    (reference: numerical_experiments.py:277-311; pcx
+    bandstructure.py:1920)."""
+    path = _library_path(output_dir, diel_type, lattice, eps_opt)
+    if not os.path.exists(path):
+        print(f"The bandgap of type {diel_type},{lattice} has no previous "
+              f"record.")
+        return None
+    lib, _ = _open_library(path, lattice, n, gap)
+    failed = lib.failed_indices()
+    empty = sorted(set(lib.pending_indices()) - set(failed))
+    if failed:
+        print(f"{RED}Warning: Blow up results detected: {failed}.{RESET}")
+    if empty:
+        print(f"{YELLOW}Following indices remain uncomputed: {empty}.{RESET}")
+    if not failed and not empty:
+        print(f"{GREEN}All indices of {diel_type},{lattice} have been "
+              f"computed without errors.{RESET}")
+    return failed, empty

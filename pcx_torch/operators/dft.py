@@ -47,3 +47,44 @@ def dft3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for _ in range(3):
         cur = axis_pass(cur, w)
     return cur.reshape(lead + n3)
+
+
+def upsample_mat(nc: int, n: int) -> np.ndarray:
+    """(nc, n) complex128 trigonometric-interpolation matrix: contracting a
+    periodic signal sampled on an nc-grid with it evaluates the signal's
+    truncated Fourier series on the n-grid (zero-padded spectrum; the
+    even-nc Nyquist bin split half and half onto +/- so that real inputs
+    stay real).  It lifts a coarse-grid eigenvector block into a fine-grid
+    start (``KPointSolver(x0_mode="coarse")``); a copy of
+    ``pcx.operators.dft.upsample_mat``."""
+    if n < nc:
+        raise ValueError(f"upsample requires n >= nc, got {nc} -> {n}")
+    fwd = np.exp(-2j * np.pi * np.outer(np.arange(nc), np.arange(nc)) / nc)
+    # pad[k, k']: coarse frequency bin k -> fine frequency bin k'
+    pad = np.zeros((nc, n), np.complex128)
+    h = nc // 2
+    for k in range(nc):
+        if k < h or nc % 2 and k == h:
+            pad[k, k] = 1.0
+        elif k > h:
+            pad[k, n - nc + k] = 1.0
+        elif n == nc:
+            pad[k, k] = 1.0
+        else:   # even-nc Nyquist: split to keep conjugate symmetry
+            pad[k, k] = 0.5
+            pad[k, n - h] = 0.5
+    g = np.exp(2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n)
+    return (fwd @ pad @ g.T) / nc
+
+
+def resample3(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Apply the (n_in, n_out) matrix ``u`` along each of the last three
+    axes of x: (..., nc, nc, nc) -> (..., n, n, n).  The same cyclic axis
+    contraction as ``dft3`` (each pass writes its axis last, so three
+    restore the order), by the plain einsum: ``u`` is not square, and the
+    JAX package computes this outside any kernel."""
+    lead = x.shape[:-3]
+    cur = x.reshape((-1,) + x.shape[-3:])
+    for _ in range(3):
+        cur = axis_dft_plain(cur, u)
+    return cur.reshape(lead + cur.shape[-3:])

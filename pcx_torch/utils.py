@@ -1,4 +1,5 @@
-"""Small utilities: robust sqrt, dtype helpers, per-vector dots and norms.
+"""Small utilities: robust sqrt, dtype helpers, per-vector dots and norms,
+device-synchronized timing, device memory and convergence rates.
 
 Port of ``pcx/utils.py``.  A block of m vectors is a tensor of shape
 ``(m, ...)``: the vector index first, each vector contiguous.
@@ -6,6 +7,10 @@ Port of ``pcx/utils.py``.  A block of m vectors is a tensor of shape
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
+
+import numpy as np
 import torch
 
 RED = "\033[31m"
@@ -36,3 +41,57 @@ def dots(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-vector inner products diag(X^H Y) -> (m,)."""
     return torch.sum(x.reshape(x.shape[0], -1).conj()
                      * y.reshape(y.shape[0], -1), dim=1)
+
+
+def _synchronize() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextmanager
+def timing(process_name=None, runtime_dict=None, print_time=False):
+    """Device-synchronized wall timing (reference: environment.py:84-111):
+    the card is synchronized before the clock is read at both ends.  The
+    yielded dict receives ``elapsed``; with ``runtime_dict`` the seconds
+    add up under ``process_name``."""
+    _synchronize()
+    t_h = time.time()
+    box = {}
+    yield box
+    _synchronize()
+    elapsed = time.time() - t_h
+    box["elapsed"] = elapsed
+    if runtime_dict is not None and process_name is not None:
+        runtime_dict[process_name] = (runtime_dict.get(process_name, 0.0)
+                                      + elapsed)
+    if print_time and process_name is not None:
+        print(f"Runtime of {process_name} is {elapsed:<6.3f} s.")
+
+
+def device_memory_mib() -> float:
+    """Peak device memory allocated by torch on the current card, in MiB
+    (``torch.cuda.max_memory_allocated``); NaN without a card (reference
+    prints the cupy pool bytes, lobpcg.py:471-472)."""
+    if not torch.cuda.is_available():
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def convergence_rate(residuals, verbose: bool = True):
+    """Average residual dampening rates by log-linear regression, over the
+    whole history and each half (reference: numerical_experiments.py:
+    189-202)."""
+    residuals = np.asarray(residuals)
+
+    def rated(x):
+        return np.polyfit(np.arange(len(x)), x, 1)[0]
+
+    m0 = np.exp(rated(np.log(residuals)))
+    n_half = len(residuals) // 2
+    m1 = np.exp(rated(np.log(residuals[:n_half])))
+    m2 = np.exp(rated(np.log(residuals[n_half:])))
+    if verbose:
+        print(f"\nGlobal average convergence rate: {m0:<6.3f}.")
+        print(f"First half average convergence rate: {m1:<6.3f}.")
+        print(f"Second half average convergence rate: {m2:<6.3f}.")
+    return m0, m1, m2

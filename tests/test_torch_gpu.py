@@ -2,8 +2,10 @@
 complex64 solve and sweep through the kernels against the same on the CPU,
 a complex128 sweep on the card against a committed library, and the
 Hermitian-tensor dielectrics on the card (complex64 against complex128
-applies, a complex128 cross-DoF sweep against the CPU's), and the Davidson
-and ``"mixed"`` solver variants on the card against the CPU.
+applies, a complex128 cross-DoF sweep against the CPU's), the Davidson
+and ``"mixed"`` solver variants on the card against the CPU, the light
+refine against the complex128 refine, the two-grid lift ``resample3``
+against the CPU's, and the complex route's two DFTs.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -27,7 +29,7 @@ from pcx_torch.kernels.axis_dft import axis_dft_plain
 from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.operators import dielectric
-from pcx_torch.operators.dft import dft_mats
+from pcx_torch.operators.dft import dft_mats, resample3, upsample_mat
 from pcx_torch.solvers import rayleigh_ritz as rr
 
 pytestmark = pytest.mark.gpu
@@ -296,3 +298,57 @@ def test_complex128_crossdof_sweep_on_cuda_matches_cpu(tmp_path):
     np.testing.assert_allclose(np.array(lib_gpu[key][1:3]),
                                np.array(lib_cpu[key][1:3]), rtol=0,
                                atol=1e-9)
+
+
+def test_light_refine_on_cuda_matches_complex128_refine():
+    """sc_curv N=64, a complex64 solve on the card: the light refine (K2 in
+    its applies) and the complex128 refine of the same block agree on the
+    leading Ritz values to 1e-5 relative and on the frequencies to 1e-4,
+    a tenth of the spurious gate, with the same verdict."""
+    dev = _cuda()
+    kps = KPointSolver(ProblemConfig(n=64, lattice="sc_curv", nev=10),
+                       device=dev, dtype=torch.complex64, refine="light")
+    alpha = np.array([np.pi, 0.0, 0.0])
+    r = kps.solve(alpha, validate_result=False)
+    assert r.status in (1, 5)
+    n2 = axis_dft.launches
+    rep_l, theta_l = kps._refine_report(alpha, r.x, raise_on_spurious=False)
+    assert axis_dft.launches > n2
+    rep_h, theta_h = kps._refine_report(alpha, r.x, raise_on_spurious=False,
+                                        mode="f64")
+    np.testing.assert_allclose(theta_l[:10], theta_h[:10], rtol=1e-5)
+    np.testing.assert_allclose(rep_l.omega_re, rep_h.omega_re, atol=1e-4)
+    np.testing.assert_allclose(rep_l.omega_pnt, rep_h.omega_pnt, atol=1e-4)
+    assert rep_l.spurious == rep_h.spurious is False
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)])
+def test_resample3_on_cuda_matches_cpu(dtype, tol):
+    """The two-grid lift (30 -> 60) of a 16-column block on the card against
+    the same on the CPU, relative to the block's largest entry."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((16, 3, 30, 30, 30), generator=gen, dtype=dtype)
+    u = torch.as_tensor(upsample_mat(30, 60)).to(dtype)
+    cpu = resample3(x, u)
+    got = resample3(x.to(dev), u.to(dev)).cpu()
+    assert got.shape == (16, 3, 60, 60, 60)
+    assert float((got - cpu).abs().max()) <= tol * float(cpu.abs().max())
+
+
+def test_complex_route_dfts_on_cuda_agree():
+    """``solver_impl="complex"`` at sc_curv N=16 in complex64 on the card:
+    with ``fft_mode="matmul"`` the operator runs K2, with ``"fft"`` cuFFT
+    and no K2; both reach the CPU's complex128 frequencies to 5e-5."""
+    dev = _cuda()
+    cfg = ProblemConfig(n=16, lattice="sc_curv", nev=6)
+    alpha = np.array([np.pi, 0.0, 0.0])
+    ref = KPointSolver(cfg, device="cpu").solve(alpha).omega_re
+    for mode in ("matmul", "fft"):
+        n2 = axis_dft.launches
+        r = KPointSolver(cfg, device=dev, dtype=torch.complex64,
+                         solver_impl="complex", fft_mode=mode).solve(alpha)
+        assert (axis_dft.launches > n2) is (mode == "matmul")
+        assert r.status in (1, 5) and not r.report.spurious
+        np.testing.assert_allclose(r.omega_re, ref, atol=5e-5)
