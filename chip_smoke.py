@@ -102,17 +102,31 @@ failure ends the run with a non-zero exit:
              solver_impl="complex" with fft_mode="matmul" (K2) and "fft"
              (cuFFT), and refine=False.  K1 and K2 must launch in the
              two-grid start's run.
+17. experiments — ``pcx_torch.experiments`` and ``profiling`` on the card:
+             ``runtime.pack_cmp`` at N=100, 120, 150 (sc_curv chiral,
+             alpha=(pi,pi,pi), k_path index 59, complex64, run_cpu=False)
+             with each N's iterations, seconds, peak memory and K1/K2
+             launches, each timed solve gated like phase 7 (against the
+             committed row at N=100 and 120; N=150 has none);
+             ``global_precision_cmp`` at N=120 (complex128 against
+             complex64, max omega difference <= 1e-4); ``phase_breakdown``
+             at fcc N=120, k_path index 9, m=16, beside phase 8's measured
+             ms/iteration; ``check_sdd`` at N=120 on the card against the
+             CPU and ``check_component_hpd`` at N=120 (smallest eigenvalue
+             of the cross-DoF eps^-1 positive); ``python -m
+             pcx_torch.experiments tol_cmp --n 32`` in a subprocess (exit 0).
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
 route), reset again just before phase 9 and read after it (K1, K2 and
 K3 must all have launched), and once more before phase 11: read after its
 sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
-solve of phase 13, around phase 14 and around each solve of phase 16.
+solve of phase 13, around phase 14, around each solve of phase 16 and
+around phase 17 (K1 and K2 must launch).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
-two-grid start's of phase 16), the
+two-grid start's of phase 16; ``launches_experiments``: phase 17's), the
 kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -172,6 +186,14 @@ KEYWORD_SOLVES = (
     ("solver_impl='complex' fft_mode='fft'",
      {"solver_impl": "complex", "fft_mode": "fft"}),
     ("refine=False", {"refine": False}))
+# Phase 17: pack_cmp's grids (the reference's runtime_sc_curv.json), the
+# sc_curv k_path index of its default alpha = (pi,pi,pi), the SDD and HPD
+# checks' grid, and the CLI's run.
+PACK_NS = [100, 120, 150]
+R_INDEX = 59
+CHECK_N = 120
+EXPERIMENTS_CLI = ["tol_cmp", "--n", "32", "--lattice", "sc_curv", "--nev",
+                   "6", "--values", "1e-3,1e-4"]
 
 FAIL = 1
 
@@ -542,7 +564,8 @@ def phase_single(dev, n: int = N, golden: bool = True) -> tuple:
     return res.iterations, res.wall_time
 
 
-def phase_warm(dev, n: int = N, golden: bool = True) -> None:
+def phase_warm(dev, n: int = N, golden: bool = True) -> float:
+    """Phase 8; returns the ms per iteration of its cold solve."""
     from pcx_torch import lattices
     from pcx_torch.bandstructure import KPointSolver
     from pcx_torch.config import ProblemConfig
@@ -567,7 +590,10 @@ def phase_warm(dev, n: int = N, golden: bool = True) -> None:
             why = gate(kps, alpha, res, gold, f"k={i} cold retry")
         if why:
             fail(f"warm chain k={i}: {why}")
+        if x_prev is None:
+            cold_ms = 1e3 * res.wall_time / max(res.iterations, 1)
         x_prev = res.x
+    return cold_ms
 
 
 def phase_sweep(dev, n: int = N, golden: bool = True) -> None:
@@ -1096,6 +1122,106 @@ def phase_keywords(dev, single, n: int = N, golden: bool = True) -> dict:
     return coarse
 
 
+def phase_experiments(dev, warm_ms: float, n: int = N, pack_ns=PACK_NS,
+                      check_n: int = CHECK_N, golden: bool = True) -> None:
+    """Phase 17: the experiments and the profiling of the port on the card.
+    ``warm_ms`` is phase 8's cold ms per iteration, the measurement beside
+    which ``phase_breakdown``'s estimate is printed."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.experiments import precision, runtime, structure
+    from pcx_torch.lattices import k_path
+    from pcx_torch.profiling import phase_breakdown
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    alpha = k_path("sc_curv")[R_INDEX]
+    print(f"phase experiments: pack_cmp({pack_ns}, 'sc_curv', run_cpu=False)"
+          f" at alpha=(pi,pi,pi), complex64", flush=True)
+    last = [kmod.launches()]
+    problems = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def on_point(n_pt, solver, res):
+        now = kmod.launches()
+        counts = {k: now[k] - last[0][k] for k in now}
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else float("nan"))
+        print(f"  N={n_pt}: launches {counts} (warm-up and timed solve), "
+              f"peak device memory {peak:.2f} GiB", flush=True)
+        gold = None
+        if golden and n_pt in (100, 120):
+            gold = golden_row("sc_curv", n_pt, R_INDEX)
+        why = gate(solver, alpha, res, gold, f"N={n_pt} timed solve")
+        if why:
+            problems.append(f"N={n_pt}: {why}")
+        if dev.type == "cuda" and not (counts["resid_precond"]
+                                       and counts["axis_dft"]):
+            problems.append(f"N={n_pt}: K1 or K2 never launched: {counts}")
+        last[0] = kmod.launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    table = runtime.pack_cmp(pack_ns, "sc_curv", run_cpu=False, device=dev,
+                             on_point=on_point, verbose=False)
+    for key, rec in table.items():
+        print(f"  {key}: [iters, cpu_s, accel_s, speedup] = {rec}; "
+              f"{1e3 * rec[2] / max(rec[0], 1):.1f} ms/iter", flush=True)
+    if problems:
+        fail(f"experiments pack_cmp: {'; '.join(problems)}")
+
+    gp = precision.global_precision_cmp(n, "sc_curv", device=dev,
+                                        verbose=False)
+    worst = float(gp["omega_diff"].max())
+    print(f"  global_precision_cmp N={n}: complex128 {gp['double'].iterations}"
+          f" iters {gp['double'].wall_time:.3f} s, complex64 "
+          f"{gp['single'].iterations} iters {gp['single'].wall_time:.3f} s, "
+          f"max omega_diff {worst:.3e}", flush=True)
+    if not worst <= 1e-4:
+        fail(f"global_precision_cmp: omega_diff {worst:.3e} > 1e-4")
+
+    solver = KPointSolver(ProblemConfig(n=n, lattice="fcc", nev=NEV),
+                          device=dev, dtype=torch.complex64)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    pb = phase_breakdown(solver, k_path("fcc")[9], m=16, verbose=False)
+    phases = ("operator_s", "precond_s", "gram_rr_s", "update_s", "ortho_s")
+    print(f"  phase_breakdown fcc N={n} k_path[9] m=16 (ms): "
+          + ", ".join(f"{k[:-2]} {1e3 * pb[k]:.3f}" for k in phases)
+          + f"; estimated iteration {1e3 * pb['iteration_estimate_s']:.3f} "
+          f"ms against phase 8's measured {warm_ms:.3f} ms/iter; peak "
+          f"{pb['memory_mib']:.0f} MiB", flush=True)
+    if not all(np.isfinite(pb[k]) and pb[k] > 0 for k in phases):
+        fail(f"phase_breakdown: {pb}")
+    del solver
+
+    t0 = time.time()
+    n_bad = structure.check_sdd(check_n, device=dev, verbose=False)
+    n_cpu = structure.check_sdd(check_n, device="cpu", verbose=False)
+    print(f"  check_sdd N={check_n}: {n_bad} rows not SDD on the card, "
+          f"{n_cpu} on the CPU ({time.time() - t0:.3f} s)", flush=True)
+    if n_bad != n_cpu:
+        fail(f"check_sdd: {n_bad} on the card, {n_cpu} on the CPU")
+    t0 = time.time()
+    eig = structure.check_component_hpd(check_n, device=dev, verbose=False)
+    print(f"  check_component_hpd N={check_n}: smallest eigenvalues of "
+          f"eps^-1 {eig} ({time.time() - t0:.3f} s)", flush=True)
+    if not eig[0] > 0:
+        fail(f"check_component_hpd: {eig}")
+
+    with tempfile.TemporaryDirectory(prefix="pcx_experiments_") as tmp:
+        cmd = [sys.executable, "-m", "pcx_torch.experiments",
+               *EXPERIMENTS_CLI, "--output", tmp,
+               *(["--cpu"] if dev.type == "cpu" else [])]
+        t0 = time.time()
+        r = run_cmd(cmd, timeout=300)
+        print(f"  {' '.join(cmd[1:])}: exit {r.returncode} in "
+              f"{time.time() - t0:.3f} s", flush=True)
+        for line in r.stdout.splitlines()[:2]:
+            print(f"    {line}", flush=True)
+        if r.returncode != 0:
+            fail(f"experiments CLI: exit {r.returncode}, {r.stderr[-2000:]}")
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -1114,7 +1240,7 @@ def main() -> None:
     counts = kmod.launches()
     if not (counts["resid_precond"] and counts["axis_dft"]):
         fail(f"K1 or K2 never launched in the single point: {counts}")
-    phase_warm(dev)
+    warm_ms = phase_warm(dev)
     counts = kmod.launches()
     print(f"phase launches: {counts} in the solves of phases 7-8 "
           f"(rr_gram='xla'); peak device memory "
@@ -1184,6 +1310,16 @@ def main() -> None:
     counts = phase_keywords(dev, single)
     for rec in kernels:
         rec["launches_coarse_start"] = counts[rec["name"]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    kmod.reset_launches()
+    phase_experiments(dev, warm_ms)
+    counts = kmod.launches()
+    print(f"phase launches: {counts} in the experiments of phase 17",
+          flush=True)
+    if not (counts["resid_precond"] and counts["axis_dft"]):
+        fail(f"K1 or K2 never launched in the experiments: {counts}")
+    for rec in kernels:
+        rec["launches_experiments"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

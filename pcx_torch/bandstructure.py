@@ -60,8 +60,8 @@ from pcx_torch.solvers.lobpcg import (Status, descent_sep, lobpcg_sep,
                                       lobpcg_sep_mixedprecision)
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
 from pcx_torch.metrics import RunLogger
-from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, norms,
-                             real_dtype, sqrt_robust)
+from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, generator,
+                             norms, real_dtype, sqrt_robust)
 
 SOLVER_OPTS = ("ortho_passes", "refresh_every", "floor_patience",
                "col_patience", "lam_tol", "lam_patience", "lam_res_tol",
@@ -349,9 +349,7 @@ class KPointSolver:
                        shift, pnt)
 
     def _generator(self, seed: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return gen
+        return generator(seed, self.device)
 
     def _coarse(self) -> "KPointSolver":
         """The coarse-grid twin of ``x0_mode="coarse"``, built at first use:

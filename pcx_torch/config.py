@@ -39,6 +39,7 @@ ALL_LATTICES = (SC_F1, SC_F2, SC_C, BCC_SG, BCC_DG, FCC)
 TYPE_CHIRAL = "chiral"
 TYPE_PSEUDO_TRIVIAL = "pseudochiral_trivial"
 TYPE_PSEUDO_CROSSDOF = "pseudochiral_crossdof"
+TYPE_PSEUDO_CROSSDOF2 = "pseudochiral_crossdof2"
 
 # Isotropic dielectric constants per lattice
 # (reference: paper_2/environment.py:49).

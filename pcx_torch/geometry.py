@@ -1,13 +1,16 @@
 """Geometry: material 'flag' predicates and the edge-DoF and cell-centre
 masks on the staggered grid.
 
-A numpy copy of the flag predicates, ``edge_mask`` and ``volume_mask`` of
-``pcx/geometry.py`` (the port never imports ``pcx``).  The material region
-is a boolean (3, N, N, N) mask, one bool per Yee edge DoF, axis order
-(component, i, j, k), and a boolean (N, N, N) mask of cell centres for the
-off-diagonal entries of a tensor dielectric.  There is no native engine and
-no on-disk cache: the numpy build takes seconds at N=120 and runs once per
-solver.
+A numpy copy of ``pcx/geometry.py`` (the port never imports ``pcx``): the
+flag predicates, ``edge_mask`` and ``volume_mask`` with their on-disk
+cache, the reference-layout index conversions and
+``volume_adjacent_edge_masks``.  The material region is a boolean
+(3, N, N, N) mask, one bool per Yee edge DoF, axis order (component, i, j,
+k), and a boolean (N, N, N) mask of cell centres for the off-diagonal
+entries of a tensor dielectric.  The masks are built with numpy (the C++
+engine of ``pcx/native.py`` is not ported) and cached as bit-packed npz
+files under ``CACHE_DIR`` (``$PCX_GEOMETRY_CACHE``, default
+``data/geometry_cache/`` of the checkout), in the JAX package's format.
 
 Flag predicates re-derive the geometric definitions of
 paper_2/dielectric.py:157-261 on broadcast coordinate grids.
@@ -15,6 +18,8 @@ paper_2/dielectric.py:157-261 on broadcast coordinate grids.
 
 from __future__ import annotations
 
+import os
+import zipfile
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -22,6 +27,13 @@ import numpy as np
 from pcx_torch import lattices
 
 _PI = np.pi
+
+# Cache directory for computed masks (npz, bit-packed), shared with pcx.
+CACHE_DIR = os.environ.get(
+    "PCX_GEOMETRY_CACHE",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "data", "geometry_cache"),
+)
 
 
 def _axis_coords(n: int, half: bool) -> np.ndarray:
@@ -161,9 +173,36 @@ FLAG_REGISTRY: Dict[str, Callable] = {
 }
 
 
-def edge_mask(n: int, lattice: Optional[str],
+def _cache_path(lattice: str, n: int, dofs: str) -> str:
+    return os.path.join(CACHE_DIR, f"{lattice}_{n}_{dofs}.npz")
+
+
+def _load_mask(path: str, shape) -> Optional[np.ndarray]:
+    """The cached mask at ``path``, or None when there is none or it cannot
+    be read (a file another process is still writing: rebuilt)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as f:
+            bits = np.unpackbits(f["bits"])
+        return bits[: int(np.prod(shape))].reshape(shape).astype(bool)
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _save_mask(path: str, mask: np.ndarray) -> None:
+    """Write the bit-packed mask through a temporary file and a rename, so
+    that a reader never sees half a file."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path[:-len('.npz')]}.{os.getpid()}.tmp.npz"
+    np.savez_compressed(tmp, bits=np.packbits(mask.reshape(-1)))
+    os.replace(tmp, path)
+
+
+def edge_mask(n: int, lattice: Optional[str], cache: bool = True,
               rng: Optional[np.random.Generator] = None) -> np.ndarray:
-    """Boolean (3, N, N, N) mask of material edge DoFs.
+    """Boolean (3, N, N, N) mask of material edge DoFs, read from and
+    written to the cache unless ``cache=False``.
 
     ``lattice=None`` produces the reference's random fake (~37.2% fill,
     dielectric.py:74-77) for flag-less smoke runs.
@@ -171,21 +210,76 @@ def edge_mask(n: int, lattice: Optional[str],
     if lattice is None:
         rng = rng or np.random.default_rng(0)
         return rng.random((3, n, n, n)) < 0.372
+    path = _cache_path(lattice, n, "edge")
+    mask = _load_mask(path, (3, n, n, n)) if cache else None
+    if mask is not None:
+        return mask
     ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
     flag = FLAG_REGISTRY[lattice]
     mask = np.empty((3, n, n, n), dtype=bool)
     for c in range(3):
         mask[c] = flag(*_transform(edge_coords(n, c), ct_inv_t))
+    if cache:
+        _save_mask(path, mask)
     return mask
 
 
-def volume_mask(n: int, lattice: Optional[str],
+def volume_mask(n: int, lattice: Optional[str], cache: bool = True,
                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
     """Boolean (N, N, N) mask of material cell centers (``lattice=None``:
-    the random fake, as ``edge_mask``)."""
+    the random fake, as ``edge_mask``; ``cache`` as there)."""
     if lattice is None:
         rng = rng or np.random.default_rng(1)
         return rng.random((n, n, n)) < 0.372
+    path = _cache_path(lattice, n, "volume")
+    mask = _load_mask(path, (n, n, n)) if cache else None
+    if mask is not None:
+        return mask
     ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
     mask = FLAG_REGISTRY[lattice](*_transform(volume_coords(n), ct_inv_t))
-    return np.broadcast_to(mask, (n, n, n)).copy()
+    mask = np.broadcast_to(mask, (n, n, n)).copy()
+    if cache:
+        _save_mask(path, mask)
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Reference-format interop (flat int64 indices, i fastest).
+# ---------------------------------------------------------------------------
+
+def mask_to_indices(mask: np.ndarray) -> np.ndarray:
+    """Convert a mask to sorted flat indices in the reference layout
+    (flat = i + j*N + k*N^2 [+ c*N^3]), for fixture parity tests."""
+    if mask.ndim == 4:           # (3, i, j, k) -> flat (c, k, j, i)
+        flat = mask.transpose(0, 3, 2, 1).reshape(-1)
+    else:                        # (i, j, k) -> flat (k, j, i)
+        flat = mask.transpose(2, 1, 0).reshape(-1)
+    return np.flatnonzero(flat).astype(np.int64)
+
+
+def indices_to_mask(ind: np.ndarray, n: int, dofs: str = "edge") -> np.ndarray:
+    """Inverse of :func:`mask_to_indices` (reads reference .bin caches)."""
+    if dofs == "edge":
+        flat = np.zeros(3 * n**3, dtype=bool)
+        flat[ind] = True
+        return flat.reshape(3, n, n, n).transpose(0, 3, 2, 1)
+    flat = np.zeros(n**3, dtype=bool)
+    flat[ind] = True
+    return flat.reshape(n, n, n).transpose(2, 1, 0)
+
+
+def volume_adjacent_edge_masks(n: int, lattice: Optional[str]) -> np.ndarray:
+    """Per-component (3, N, N, N) masks of edge DoFs adjacent to material
+    volume cells: an edge DoF is marked when any of the 4 cells around it
+    is material (the mask form of mesh3d_offdiagonal_dofs,
+    paper_2/dielectric.py:132-150), by rolls of the volume mask along the
+    two axes orthogonal to the component."""
+    vm = volume_mask(n, lattice)
+    out = np.zeros((3, n, n, n), dtype=bool)
+    axes = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+    for c in range(3):
+        a1, a2 = axes[c]
+        for s1 in (0, 1):
+            for s2 in (0, 1):
+                out[c] |= np.roll(np.roll(vm, s1, axis=a1), s2, axis=a2)
+    return out

@@ -60,3 +60,8 @@ def h_block_planes(xr: torch.Tensor, xi: torch.Tensor, diag: torch.Tensor,
     y2 = add(mul(c1, x0), mul(c2, x1), (x2[0] * diag[2], x2[1] * diag[2]))
     return (torch.stack((y0[0], y1[0], y2[0]), dim=-4),
             torch.stack((y0[1], y1[1], y2[1]), dim=-4))
+
+
+def diag_block(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Plain diagonal multiply y_c = d_c * x_c."""
+    return d * x

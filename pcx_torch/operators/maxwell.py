@@ -9,15 +9,25 @@ The LOBPCG block lives in Fourier space, so one apply costs one forward and
 one inverse 3-D DFT around the physical-space dielectric; the penalty and
 the preconditioner are zero-FFT block multiplies
 (reference: AMA / AMA_BB, paper_2/pcfft.py:130-181).
+
+``MaxwellProblem`` (an ``nn.Module``), ``assemble_symbols`` and
+``assemble_problem`` assemble one k-point from the full-array symbols, as
+the JAX package's experiments and tests do; ``KPointSolver`` builds its
+symbols from the 1-D parts instead.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from pcx_torch import lattices
+from pcx_torch.config import SCAL, ProblemConfig, set_relaxation
+from pcx_torch.operators import dielectric as diel_mod
+from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.blocks import a_block, h_block
 from pcx_torch.operators.dft import DFTMats, dft3
 from pcx_torch.operators.symbols import HermSymbol
@@ -49,6 +59,94 @@ def ama_bb(x: torch.Tensor, d_a: torch.Tensor, b: HermSymbol, diel,
     if shift != 0.0:
         y = y + shift * x
     return y
+
+
+class MaxwellProblem(nn.Module):
+    """Assembled single-k-point eigenproblem: the curl symbol ``d_a``, the
+    pnt-scaled penalty symbol ``b`` and the preconditioner symbol ``inv``
+    as buffers (``b`` and ``inv`` are ``HermSymbol`` views of the buffers
+    ``b_diag``/``b_sdiag`` and ``inv_diag``/``inv_sdiag``), the dielectric
+    as a submodule, and the scalars of the k-point
+    (reference: uniform_initialization + pc_mfd_handle,
+    paper_2/numerical_experiments.py:33-85; pcx maxwell.MaxwellProblem)."""
+
+    def __init__(self, n: int, alpha, d_a: torch.Tensor, b: HermSymbol,
+                 inv: HermSymbol, diel: diel_mod.DielectricOp, shift: float,
+                 pnt: float, scal: float = SCAL):
+        super().__init__()
+        self.n = n
+        self.alpha: Tuple[float, float, float] = tuple(
+            float(a) for a in np.asarray(alpha, dtype=float))
+        self.shift = float(shift)
+        self.pnt = float(pnt)
+        self.scal = float(scal)
+        self.register_buffer("d_a", d_a)
+        self.register_buffer("b_diag", b.diag)
+        self.register_buffer("b_sdiag", b.sdiag)
+        self.register_buffer("inv_diag", inv.diag)
+        self.register_buffer("inv_sdiag", inv.sdiag)
+        self.diel = diel
+
+    @property
+    def b(self) -> HermSymbol:
+        return HermSymbol(self.b_diag, self.b_sdiag)
+
+    @property
+    def inv(self) -> HermSymbol:
+        return HermSymbol(self.inv_diag, self.inv_sdiag)
+
+    def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Unpenalized A M A^H, used by the validation recompute
+        (reference: numerical_experiments.py:81)."""
+        return ama(x, self.d_a, self.diel)
+
+    def h_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Penalized operator with the shift (reference: num_exp.py:82)."""
+        return ama_bb(x, self.d_a, self.b, self.diel, self.shift)
+
+    def p_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Preconditioner (A A^H + pnt B^H B + shift)^{-1}: zero FFTs
+        (reference: num_exp.py:83)."""
+        return h_block(x, self.inv)
+
+    @property
+    def dof_shape(self):
+        return (3, self.n, self.n, self.n)
+
+
+def assemble_symbols(n: int, k: int, ct: np.ndarray, alpha, pnt: float,
+                     shift: float, scal: float = SCAL,
+                     dtype: torch.dtype = torch.complex128, device="cuda"):
+    """(d_a, b, inv) of one dimensionless wave vector alpha, built in
+    complex128 on ``device`` and cast to ``dtype`` (diagonals to its real
+    dtype): D_A = (D_unit + i alpha D0) / scal, b = pnt * B^H B, and the
+    shift already in physical units (reference chain at SCAL=1,
+    num_exp.py:55-63; pcx maxwell.assemble_symbols)."""
+    d, di = sym.curl_symbols(n, k, ct, scal=1.0, device=device)
+    d_a = sym.shift_symbol(d, di, alpha, scal=1.0) / scal
+    b_raw = sym.penalty_symbol(d_a)
+    inv = sym.inverse_penalized_b(b_raw, pnt, shift=shift)
+    b = HermSymbol(pnt * b_raw.diag, pnt * b_raw.sdiag)
+    return d_a.to(dtype), b.to(dtype), inv.to(dtype)
+
+
+def assemble_problem(cfg: ProblemConfig, alpha,
+                     dtype: torch.dtype = torch.complex128,
+                     diel: Optional[diel_mod.DielectricOp] = None,
+                     device="cuda") -> MaxwellProblem:
+    """The problem of one k-point on ``device``: set_relaxation, the
+    symbols, and the dielectric of ``cfg`` unless ``diel`` is given
+    (reference: numerical_experiments.py:33-85)."""
+    (shift, _rlx), pnt = set_relaxation(alpha)
+    shift = shift / cfg.scal ** 2
+    ct = lattices.ct_matrix(cfg.lattice) if cfg.lattice else np.eye(3)
+    d_a, b, inv = assemble_symbols(cfg.n, cfg.k, ct, alpha, pnt, shift,
+                                   scal=cfg.scal, dtype=dtype, device=device)
+    if diel is None:
+        diel = diel_mod.build(cfg.diel_type, cfg.n, cfg.lattice, device,
+                              eps_opt=cfg.eps_opt, k=cfg.k)
+    return MaxwellProblem(cfg.n, alpha, d_a, b, inv, diel, shift, pnt,
+                          cfg.scal)
 
 
 def plane_wave_cols(d_a: np.ndarray, m: int):
@@ -117,3 +215,16 @@ def plane_wave_scatter(idx: np.ndarray, amps: np.ndarray, n: int,
     if gen is not None:
         x0 = x0 + 1e-2 * random_block(gen, n, m, dtype, device)
     return x0
+
+
+def plane_wave_block(d_a, m: int, dtype: torch.dtype = torch.complex128,
+                     device="cuda",
+                     gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Physics-informed (m, 3, N, N, N) start block: transverse plane waves
+    at the m/2 lowest vacuum eigenvalues (``plane_wave_cols``), scattered on
+    ``device``, plus 1e-2 times a random block from ``gen`` when one is
+    given (pcx maxwell.plane_wave_block; its ``jitter_key``)."""
+    d_a = (d_a.cpu().numpy() if isinstance(d_a, torch.Tensor)
+           else np.asarray(d_a))
+    idx, amps = plane_wave_cols(d_a, m)
+    return plane_wave_scatter(idx, amps, d_a.shape[1], dtype, device, gen)

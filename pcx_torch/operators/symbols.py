@@ -17,6 +17,15 @@ the caller (``HermSymbol.to``), as the JAX solver does
   (reference: discretization.py:343-344),
 * preconditioner ``(A A^H + pnt B^H B + shift)^{-1}`` by the closed-form
   Hermitian 3x3 block inverse (reference: discretization.py:224-295).
+
+Two families live here.  The main path builds from the 1-D parts:
+``symbol_parts``, ``build_curl``, ``penalty(d_a, pnt)`` (already scaled by
+pnt) and ``inverse_penalized(d_a, pnt, shift)``.  The full-array functions
+of ``pcx/operators/symbols.py`` take and return (3, N, N, N) tensors, for
+``maxwell.assemble_symbols`` and the experiments: ``curl_symbols``,
+``shift_symbol``, ``penalty_symbol`` (unscaled), ``inverse_3x3_block``,
+``inverse_gram`` and ``inverse_penalized_b``, which is the JAX package's
+``inverse_penalized(b, pnt, shift)`` taking the penalty symbol ``b``.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from pcx_torch import stencils
+from pcx_torch.config import SCAL
 from pcx_torch.utils import real_dtype
 
 
@@ -116,3 +126,83 @@ def inverse_penalized(d_a: torch.Tensor, pnt: float,
                            (s0 * s2 - s1 * d1) * inv_det,
                            (s1 * s0.conj() - s2 * d0) * inv_det))
     return HermSymbol(f_diag, f_sdiag)
+
+
+# ---------------------------------------------------------------------------
+# Full-array symbols (pcx/operators/symbols.py:49-152).
+# ---------------------------------------------------------------------------
+
+def curl_symbols(n: int, k: int, ct: np.ndarray, scal: float = SCAL,
+                 device="cuda", dtype: torch.dtype = torch.complex128):
+    """k-independent symbol parts (D, Di), each (3, N, N, N):
+    D[c] = sum_j CT[c,j] * D1[axis j] (the curl part, D1 with grid step
+    scal / N) and Di[c] = D0[axis c] (to be scaled by i*alpha_c)
+    (reference: paper_2/discretization.py:301-335, alpha=None branch)."""
+    d1 = torch.as_tensor(np.asarray(stencils.symbol_1d(n, k, 1, scal / n)),
+                         device=device).to(dtype)
+    d0 = torch.as_tensor(np.asarray(stencils.symbol_1d(n, k, 0)),
+                         device=device).to(dtype)
+    ct = np.asarray(ct, dtype=np.float64)
+    d = torch.stack([sum(float(ct[c][j]) * _bcast(d1, j) for j in range(3))
+                     .expand(n, n, n) for c in range(3)])
+    di = torch.stack([_bcast(d0, c).expand(n, n, n) for c in range(3)])
+    return d, di
+
+
+def shift_symbol(d: torch.Tensor, di: torch.Tensor, alpha,
+                 scal: float = SCAL) -> torch.Tensor:
+    """Apply the k-point shift: D_A[c] = D[c] + i*(alpha_c/scal)*Di[c]
+    (reference: discretization.py:337-341, numerical_experiments.py:
+    434-436)."""
+    alpha = torch.as_tensor(np.asarray(alpha, dtype=np.float64) / scal,
+                            device=d.device)
+    return d + 1j * alpha[:, None, None, None] * di
+
+
+def penalty_symbol(d_a: torch.Tensor) -> HermSymbol:
+    """The unscaled B^H B block symbol of the curl symbol: diag |D_c|^2,
+    sdiag conj(D_a) D_b (reference: discretization.py:343-344)."""
+    return HermSymbol((d_a.conj() * d_a).real, torch.stack(_pairs(d_a)))
+
+
+def inverse_3x3_block(diag: torch.Tensor, sdiag: torch.Tensor,
+                      shift: float = 0.0,
+                      hermitian: bool = True) -> HermSymbol:
+    """Closed-form inverse of a Hermitian 3x3 block symbol, adjugate over
+    determinant (reference: paper_2/discretization.py:224-270)."""
+    d0, d1, d2 = diag[0] + shift, diag[1] + shift, diag[2] + shift
+    s0, s1, s2 = sdiag[0], sdiag[1], sdiag[2]
+    det = (d0 * d1 * d2
+           - (d0 * (s2 * s2.conj()) + d1 * (s1 * s1.conj())
+              + d2 * (s0 * s0.conj()))
+           + 2 * (s0 * s2 * s1.conj()).real)
+    f_diag = torch.stack(((d1 * d2 - s2 * s2.conj()) / det,
+                          (d0 * d2 - s1 * s1.conj()) / det,
+                          (d0 * d1 - s0 * s0.conj()) / det))
+    if hermitian:
+        f_diag = f_diag.real
+    f_sdiag = torch.stack(((s1 * s2.conj() - s0 * d2) / det,
+                           (s0 * s2 - s1 * d1) / det,
+                           (s1 * s0.conj() - d0 * s2) / det))
+    return HermSymbol(f_diag, f_sdiag)
+
+
+def inverse_penalized_b(b: HermSymbol, pnt: float,
+                        shift: float = 0.0) -> HermSymbol:
+    """Symbol of (A A^H + pnt B^H B + shift)^{-1} from the unscaled penalty
+    symbol ``b`` (the JAX package's ``inverse_penalized(b, pnt, shift)``):
+    diagonal pnt*|D_c|^2 + sum_{c' != c} |D_c'|^2, off-diagonal
+    (pnt - 1) * sdiag (reference: paper_2/discretization.py:284-295)."""
+    b0, b1, b2 = b.diag[0], b.diag[1], b.diag[2]
+    diag = torch.stack((pnt * b0 + b1 + b2, b0 + pnt * b1 + b2,
+                        b0 + b1 + pnt * b2))
+    return inverse_3x3_block(diag, (pnt - 1.0) * b.sdiag, shift=shift)
+
+
+def inverse_gram(d_a: torch.Tensor, shift: float = 1.0) -> HermSymbol:
+    """Symbol of (A A^H + shift)^{-1}, the curl-only preconditioner
+    (reference: discretization.py:272-282)."""
+    ds = (d_a.conj() * d_a).real
+    diag = torch.stack((ds[1] + ds[2], ds[0] + ds[2], ds[0] + ds[1]))
+    sdiag = -torch.stack(_pairs(d_a))
+    return inverse_3x3_block(diag, sdiag, shift=shift)

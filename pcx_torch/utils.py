@@ -26,21 +26,60 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
     return _REAL.get(dtype, dtype)
 
 
+def generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def sqrt_robust(x: float) -> float:
     """Clamp tiny negatives to 0 before sqrt
     (reference: environment.py:59, numerical_experiments.py:135-140)."""
     return 0.0 if x < 1e-10 else float(x) ** 0.5
 
 
+def as_blockvec(x: torch.Tensor) -> torch.Tensor:
+    """Flatten a block (m, ...) to (m, D)."""
+    return x.reshape(x.shape[0], -1)
+
+
+def norm(x) -> torch.Tensor:
+    """Frobenius norm of all entries (reference: environment.py:117-129)."""
+    return torch.linalg.vector_norm(torch.as_tensor(x))
+
+
 def norms(x: torch.Tensor) -> torch.Tensor:
     """Per-vector 2-norms of a block (m, ...) -> (m,) in the real dtype."""
-    return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
+    return torch.linalg.vector_norm(as_blockvec(x), dim=1)
 
 
 def dots(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-vector inner products diag(X^H Y) -> (m,)."""
-    return torch.sum(x.reshape(x.shape[0], -1).conj()
-                     * y.reshape(y.shape[0], -1), dim=1)
+    return torch.sum(as_blockvec(x).conj() * as_blockvec(y), dim=1)
+
+
+def block_until_ready(tree):
+    """Wait until the card has computed every CUDA tensor in ``tree`` (a
+    tensor, or lists, tuples and dicts of them) and return ``tree``: the
+    port's ``jax.block_until_ready``."""
+    devices = set()
+
+    def walk(a):
+        if isinstance(a, torch.Tensor):
+            if a.is_cuda:
+                devices.add(a.device)
+        elif isinstance(a, dict):
+            for v in a.values():
+                walk(v)
+        elif isinstance(a, (list, tuple)):
+            for v in a:
+                walk(v)
+
+    walk(tree)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return tree
 
 
 def _synchronize() -> None:

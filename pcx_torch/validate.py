@@ -1,7 +1,8 @@
 """Validation: eigenvalue recompute, spurious-mode gate, frequencies.
 
 Port of ``pcx/validate.py`` (``recompute``, ``ValidationReport``,
-``SpuriousModeError``).  The core invariant: eigenvalues of the *penalized*
+``SpuriousModeError``, ``print_standard_deviation``, ``observed_order``).
+The core invariant: eigenvalues of the *penalized*
 operator, recomputed as Rayleigh quotients of the *unpenalized* A M A^H,
 must agree; otherwise the eigenvector has a divergence component (a
 spurious mode) and the run is invalid
@@ -11,11 +12,13 @@ spurious mode) and the run is invalid
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+import torch
 
 from pcx_torch.config import SCAL
-from pcx_torch.utils import RED, RESET, sqrt_robust
+from pcx_torch.utils import RED, RESET, dots, norms, sqrt_robust
 
 
 class SpuriousModeError(RuntimeError):
@@ -39,19 +42,32 @@ class ValidationReport:
         return "\n".join(lines)
 
 
-def recompute(lambdas_in, stats, shift: float = 0.0, scal: float = SCAL,
+def recompute(lambdas_in, x: Optional[torch.Tensor] = None, a_apply=None,
+              shift: float = 0.0, scal: float = SCAL,
               spurious_tol: float = 1e-3, raise_on_spurious: bool = True,
-              verbose: bool = False) -> ValidationReport:
-    """Compare penalized eigenvalues with ``stats = (lam_re, residuals)``,
-    the Rayleigh quotients and residual norms of the unpenalized operator
-    (computed by the refine), and convert both to frequencies
-    omega = sqrt(lambda) * scal / (2 pi).
+              verbose: bool = False, stats=None) -> ValidationReport:
+    """Recompute eigenvalues against the unpenalized operator and convert
+    both to frequencies omega = sqrt(lambda) * scal / (2 pi).
+
+    Either pass ``(x, a_apply)``, the Ritz block (nev, ...) and the
+    unpenalized operator, whose Rayleigh quotients and residual norms
+    against ``lambdas_in`` (shift removed) are computed here in the block's
+    dtype, or ``stats = (lam_re, residuals)`` computed elsewhere (the
+    solver's refine) (reference: recompute_normalize_print,
+    numerical_experiments.py:87-158).
     """
     lambdas = np.asarray(lambdas_in, dtype=float)
     if shift > 0.0:
         lambdas = lambdas - shift
-    lam_re = np.asarray(stats[0], dtype=float)[: lambdas.shape[0]]
-    res = np.asarray(stats[1], dtype=float)[: lambdas.shape[0]]
+    if stats is not None:
+        lam_re = np.asarray(stats[0], dtype=float)[: lambdas.shape[0]]
+        res = np.asarray(stats[1], dtype=float)[: lambdas.shape[0]]
+    else:
+        adax = a_apply(x)
+        lam_re = (dots(x, adax) / dots(x, x)).real.cpu().numpy()
+        lam = torch.as_tensor(lambdas, device=x.device).to(x.dtype)
+        r = adax - lam.reshape((-1,) + (1,) * (x.dim() - 1)) * x
+        res = norms(r).cpu().numpy()
 
     # NaN cross-checks (reference: numerical_experiments.py:113-132).
     nan_pnt = np.isnan(lambdas)
@@ -72,3 +88,37 @@ def recompute(lambdas_in, stats, shift: float = 0.0, scal: float = SCAL,
     if spurious and raise_on_spurious:
         raise SpuriousModeError(f"{RED}Spurious eigenvalues occur.{RESET}")
     return report
+
+
+def print_standard_deviation(omega_pnt: np.ndarray, omega_re: np.ndarray,
+                             nev: Optional[int] = None):
+    """Std-dev table across repeated runs
+    (reference: numerical_experiments.py:179-187)."""
+    sd_pnt = np.std(np.asarray(omega_pnt), axis=0)
+    sd_re = np.std(np.asarray(omega_re), axis=0)
+    nev = nev or len(sd_pnt)
+    print("\nStandard deviation of each eigenvalue:")
+    print("| i  |  std_pnt  |  std_re   |")
+    for i in range(nev):
+        print(f"| {i + 1:<2d} | {sd_pnt[i]:<6.3e} | {sd_re[i]:<6.3e} |")
+    return sd_pnt, sd_re
+
+
+def observed_order(freqs_by_n: dict, verbose: bool = True) -> np.ndarray:
+    """Observed convergence order from a grid-refinement study
+    {N: omega array}, Ns doubling: order = log2(|d1| / |d2|)
+    (reference: paper_2_test.py:363-401 precision_test)."""
+    ns = sorted(freqs_by_n)
+    if len(ns) < 3:
+        raise ValueError("Need at least 3 grid sizes.")
+    orders = []
+    for i in range(len(ns) - 2):
+        f0, f1, f2 = (np.asarray(freqs_by_n[ns[i + j]]) for j in range(3))
+        d1 = np.abs(f1 - f0)
+        d2 = np.abs(f2 - f1)
+        orders.append(np.log2(np.maximum(d1, 1e-300) / np.maximum(d2, 1e-300)))
+    orders = np.array(orders)
+    if verbose:
+        for i, row in enumerate(orders):
+            print(f"N={ns[i]}->{ns[i + 2]}: orders {np.round(row, 2)}")
+    return orders

@@ -115,7 +115,7 @@ def test_scalar_dielectric_apply_matches_pcx(kind):
 @pytest.mark.parametrize("lattice", jcfg.ALL_LATTICES)
 def test_volume_mask_matches_pcx(lattice, n):
     want = jgeo.volume_mask(n, lattice, cache=False, use_native=False)
-    got = tgeo.volume_mask(n, lattice)
+    got = tgeo.volume_mask(n, lattice, cache=False)
     assert got.dtype == bool and got.shape == (n, n, n)
     assert got.flags.writeable
     np.testing.assert_array_equal(got, want)

@@ -352,3 +352,39 @@ def test_complex_route_dfts_on_cuda_agree():
         assert (axis_dft.launches > n2) is (mode == "matmul")
         assert r.status in (1, 5) and not r.report.spurious
         np.testing.assert_allclose(r.omega_re, ref, atol=5e-5)
+
+
+def test_pack_cmp_on_cuda_launches_k1_and_k2(tmp_path):
+    """``pack_cmp`` on the card runs the production complex64 solve: K1 and
+    K2 launch, and the table has the committed schema with positive
+    synchronized seconds."""
+    from pcx_torch.experiments import runtime
+    _cuda()
+    k1, k2 = resid_precond.launches, axis_dft.launches
+    seen = []
+    out = runtime.pack_cmp([32], "sc_curv", nev=6, run_cpu=False,
+                           verbose=False, output_path=str(tmp_path / "r.json"),
+                           on_point=lambda n, s, r: seen.append((n, r.status)))
+    assert resid_precond.launches > k1 and axis_dft.launches > k2
+    rec = out["sc_curv_32"]
+    assert rec[0] > 0 and rec[2] > 0 and np.isnan(rec[1])
+    assert seen and seen[0][0] == 32 and seen[0][1] in (1, 5)
+    with open(tmp_path / "r.json") as f:
+        assert list(json.load(f)) == ["sc_curv_32"]
+
+
+def test_phase_breakdown_on_cuda():
+    """``phase_breakdown`` on the card: CUDA-event times, all positive, the
+    operator through K2 (complex64), and the card's peak memory."""
+    from pcx_torch.lattices import k_path
+    from pcx_torch.profiling import phase_breakdown
+    dev = _cuda()
+    solver = KPointSolver(ProblemConfig(n=32, lattice="fcc", nev=10),
+                          device=dev, dtype=torch.complex64)
+    k2 = axis_dft.launches
+    out = phase_breakdown(solver, k_path("fcc")[9], m=16, repeats=3,
+                          verbose=False)
+    assert axis_dft.launches > k2
+    for k in ("operator_s", "precond_s", "gram_rr_s", "update_s", "ortho_s",
+              "iteration_estimate_s", "memory_mib"):
+        assert np.isfinite(out[k]) and out[k] > 0, k

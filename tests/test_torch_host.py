@@ -19,7 +19,7 @@ from pcx_torch import stencils as tst
 @pytest.mark.parametrize("lattice", jcfg.ALL_LATTICES)
 def test_edge_mask_matches_pcx(lattice, n):
     want = jgeo.edge_mask(n, lattice, cache=False, use_native=False)
-    got = tgeo.edge_mask(n, lattice)
+    got = tgeo.edge_mask(n, lattice, cache=False)
     assert got.dtype == bool and got.shape == (3, n, n, n)
     np.testing.assert_array_equal(got, want)
 
