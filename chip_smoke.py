@@ -115,18 +115,37 @@ failure ends the run with a non-zero exit:
              CPU and ``check_component_hpd`` at N=120 (smallest eigenvalue
              of the cross-DoF eps^-1 positive); ``python -m
              pcx_torch.experiments tol_cmp --n 32`` in a subprocess (exit 0).
+18. parallel — several cards: W = min(cards, 2) ranks started by spawn, one
+             card each over NCCL (``init_distributed``, ``make_mesh``); with
+             one card W is 1 and the collectives carry nothing.
+             (a) ``solve_batch(mesh=)`` of fcc chiral N=120 k_path 9-10,
+             complex64, each member gated like phase 8 and within 1e-6 of
+             rank 0's serial solve from the same start; (b) ``bandgap(mesh=)``
+             resuming rows 8-11 of a copy of the fcc library with
+             rr_gram="pallas" and refine="light": every row within 3.5e-3
+             of the committed one, the other rows untouched, only rank 0's
+             library and metrics written, K1, K2 and K3 launched on rank 0;
+             (c) ``solve_kpoint_sharded`` at n_grid=W, sc_curv N=120,
+             alpha=(pi,0,0), complex64, chiral and cross-DoF: the gathered
+             Ritz vectors inside the 1e-3 spurious gate (validate.recompute),
+             within 3.5e-3 of the committed row and 1e-4 of a single-card
+             solve from the same start block, with iterations, seconds and
+             each rank's peak memory; (d) the native mask engine at N=120
+             for sc_curv and fcc, bit-identical to numpy, both timed.
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
 route), reset again just before phase 9 and read after it (K1, K2 and
 K3 must all have launched), and once more before phase 11: read after its
 sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
-solve of phase 13, around phase 14, around each solve of phase 16 and
-around phase 17 (K1 and K2 must launch).
+solve of phase 13, around phase 14, around each solve of phase 16,
+around phase 17 (K1 and K2 must launch) and, on rank 0, around phase 18's
+``bandgap(mesh=)`` (K1, K2 and K3 must launch).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
-two-grid start's of phase 16; ``launches_experiments``: phase 17's), the
+two-grid start's of phase 16; ``launches_experiments``: phase 17's;
+``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``), the
 kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -140,9 +159,11 @@ There is no CPU path: without CUDA the script exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1222,6 +1243,353 @@ def phase_experiments(dev, warm_ms: float, n: int = N, pack_ns=PACK_NS,
             fail(f"experiments CLI: exit {r.returncode}, {r.stderr[-2000:]}")
 
 
+# Phase 18: several cards.  The rank processes run _parallel_rank; the
+# parent runs the mask engine and checks what the ranks wrote back.
+BATCH_INDICES = [9, 10]
+MESH_ROWS = [8, 9, 10, 11]
+SHARDED_INDEX = 19          # k_path("sc_curv") index of alpha = (pi, 0, 0)
+SHARDED_DIELS = ("chiral", CROSSDOF)
+MASK_LATTICES = ("sc_curv", "fcc")
+PARALLEL_TIMEOUT = 900      # seconds for the ranks of phase 18
+
+
+def gate_record(res, golden, tag: str) -> str:
+    """``gate`` on a ``solve_batch`` member by its own validation report
+    (its block may lie on another rank): status, the spurious gate and the
+    golden row."""
+    from pcx_torch.solvers.lobpcg import Status
+    if res.status not in (Status.CONVERGED, Status.FLOOR):
+        return f"status {Status(res.status).name}"
+    rep = res.report
+    dev = float(np.abs(rep.omega_pnt - rep.omega_re).max())
+    gold = (float(np.abs(rep.omega_re - golden).max())
+            if golden is not None else float("nan"))
+    print(f"  {tag}: status {Status(res.status).name} iters "
+          f"{res.iterations} wall {res.wall_time:.3f} s "
+          f"max|omega-omega_re| {dev:.3e} max|omega_re-golden| {gold:.3e}",
+          flush=True)
+    if rep.spurious or not dev <= SPURIOUS_TOL:
+        return f"spurious (max|omega-omega_re| {dev:.3e})"
+    if golden is not None and not gold <= GOLDEN_TOL:
+        return f"omega_re {gold:.3e} from the golden row"
+    return ""
+
+
+def _peak_gib(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else float("nan"))
+
+
+def _parallel_batch(dev, dtype, mesh, n, golden, say) -> list:
+    """(a): solve_batch(mesh=) of fcc BATCH_INDICES, each member gated and
+    held against rank 0's serial solve from the same start."""
+    import torch.distributed as dist
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    from pcx_torch.lattices import k_path
+    alphas = [k_path("fcc")[i] for i in BATCH_INDICES]
+    kps = KPointSolver(ProblemConfig(n=n, lattice="fcc", nev=NEV),
+                       device=dev, dtype=dtype)
+    t0 = time.time()
+    res = kps.solve_batch(alphas, seed=BATCH_INDICES[0], mesh=mesh)
+    wall = time.time() - t0
+    problems = []
+    say(f"  (a) solve_batch(mesh=) fcc N={n} k_path {BATCH_INDICES}: "
+        f"{wall:.3f} s for the group")
+    if dist.get_rank() != 0:
+        return problems
+    for j, (i, r) in enumerate(zip(BATCH_INDICES, res)):
+        why = gate_record(r, golden_row("fcc", n, i) if golden else None,
+                          f"k={i} member {j}")
+        if why:
+            problems.append(f"(a) k={i}: {why}")
+        serial = kps.solve(alphas[j], seed=BATCH_INDICES[0] + j)
+        diff = float(np.abs(serial.omega_re - r.omega_re).max())
+        print(f"    k={i}: max|omega_re - serial solve| {diff:.3e} (serial "
+              f"{serial.iterations} iters, {serial.wall_time:.3f} s)",
+              flush=True)
+        if not diff <= 1e-6:
+            problems.append(f"(a) k={i}: {diff:.3e} from the serial solve")
+    return problems
+
+
+def _parallel_sweep(dev, dtype, mesh, n, golden, out_dir, say) -> tuple:
+    """(b): bandgap(mesh=) resuming MESH_ROWS of the fcc library copy in
+    rank 0's directory; returns (problems, rank 0's launch counts)."""
+    import torch.distributed as dist
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import bandgap
+    rank = dist.get_rank()
+    mine = os.path.join(out_dir, f"sweep{rank}")
+    kmod.reset_launches()
+    log = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        err = bandgap(n=n, lattice="fcc", nev=NEV, dtype=dtype, device=dev,
+                      output_dir=mine, metrics_path=mine + ".jsonl",
+                      indices=None, verbose=True, mesh=mesh,
+                      solver_opts={"rr_gram": "pallas"},
+                      solver_kw={"refine": "light"})
+    wall = time.time() - t0
+    counts = kmod.launches()
+    problems = [f"(b) rank {rank}: failed indices {err}"] if err else []
+    if rank != 0:
+        if os.path.exists(mine) or os.path.exists(mine + ".jsonl"):
+            problems.append(f"(b) rank {rank} wrote a library or metrics")
+        return problems, counts
+    for line in log.getvalue().splitlines():
+        print(f"    {line}", flush=True)
+    key = f"fcc_{n}"
+    with open(os.path.join(out_dir, "reference.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(mine, "chiral", "bandgap_fcc.json")) as f:
+        lib = json.load(f)
+    print(f"  (b) bandgap(mesh=) fcc N={n} rows {MESH_ROWS} resumed, "
+          f"rr_gram='pallas' refine='light': {wall:.3f} s, "
+          f"{wall / len(MESH_ROWS):.3f} s/k-point; rank 0 launches "
+          f"{counts}", flush=True)
+    for i, (it, row) in enumerate(zip(lib[f"{key}_iterations"],
+                                      lib[f"{key}_frequencies"])):
+        if i not in MESH_ROWS:
+            if (it != ref[f"{key}_iterations"][i]
+                    or row != ref[f"{key}_frequencies"][i]):
+                problems.append(f"(b) row {i} changed")
+            continue
+        gold = (float(np.abs(np.array(row)
+                             - np.array(ref[f"{key}_frequencies"][i])).max())
+                if golden else float("nan"))
+        print(f"    k={i}: iters {it[0]:.0f} wall {it[1]:.3f} s "
+              f"max|omega - committed| {gold:.3e}", flush=True)
+        if it[0] <= 0 or (golden and not gold <= GOLDEN_TOL):
+            problems.append(f"(b) row {i}: {it}, {gold:.3e} from the "
+                            f"committed row")
+    if dev.type == "cuda" and not all(counts.values()):
+        problems.append(f"(b) a kernel never launched on rank 0: {counts}")
+    return problems, counts
+
+
+def _parallel_sharded(dev, dtype, n, golden, say) -> list:
+    """(c): solve_kpoint_sharded over the whole world as the grid axis, at
+    sc_curv alpha=(pi,0,0), each dielectric of SHARDED_DIELS, against its
+    committed row and a single-card solve from the same start block."""
+    import torch.distributed as dist
+    from pcx_torch import geometry, stencils, validate
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import CHIRAL_EPS_EG, ProblemConfig
+    from pcx_torch.lattices import k_path
+    from pcx_torch.operators import dielectric as diel_mod
+    from pcx_torch.operators import maxwell
+    from pcx_torch.operators.blocks import h_block
+    from pcx_torch.parallel.mesh import GRID_AXIS, gather_shards, make_mesh
+    from pcx_torch.parallel.solve import solve_kpoint_sharded
+    from pcx_torch.solvers.lobpcg import Status, lobpcg_sep
+    rank = dist.get_rank()
+    mesh = make_mesh(n_grid=dist.get_world_size(), device_type=dev.type)
+    group = mesh.get_group(GRID_AXIS)
+    alpha = k_path("sc_curv")[SHARDED_INDEX]
+    em = geometry.edge_mask(n, "sc_curv")
+    problems = []
+    for diel_type in SHARDED_DIELS:
+        cfg = ProblemConfig(n=n, lattice="sc_curv", diel_type=diel_type,
+                            nev=NEV)
+        kps = KPointSolver(cfg, device=dev, dtype=dtype,
+                           solver_impl="complex", fft_mode="fft")
+        sy = kps.symbols_for(alpha)
+        if diel_type == "chiral":
+            scale = np.where(em, 1.0 / CHIRAL_EPS_EG["sc_curv"], 1.0)
+        else:
+            eps_loc = diel_mod._eps_components("sc_curv", 0, None)
+            scale = {"crossdof": (
+                diel_mod._masked_diag(em, eps_loc), em.astype(np.float64),
+                tuple(float(w) for w in stencils.mfd_stencil(cfg.k, 0)),
+                *(complex(e) for e in eps_loc[3:6]))}
+        x0 = kps._x0_cold(alpha, kps.block_width(alpha), SHARDED_INDEX)
+        opts = dict(kps.solver_opts, tol=kps.tol, maxiter=kps.maxiter)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize(dev)
+        t0 = time.time()
+        res = solve_kpoint_sharded(mesh, sy.d_a, tuple(sy.b), tuple(sy.inv),
+                                   scale, sy.shift, x0, NEV, **opts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, _peak_gib(dev))
+        x = gather_shards(res.x, -1, group)
+        tag = f"(c) {diel_type}"
+        if rank != 0:
+            del x, res
+            continue
+
+        def a_apply(v):
+            return maxwell.ama(v, sy.d_a, kps.diel)
+
+        rep = validate.recompute(res.lambdas[:NEV].cpu().numpy(), x[:NEV],
+                                 a_apply, shift=sy.shift, scal=cfg.scal,
+                                 raise_on_spurious=False)
+        spur = float(np.abs(rep.omega_pnt - rep.omega_re).max())
+        gold = (float(np.abs(rep.omega_re - golden_row(
+            "sc_curv", n, SHARDED_INDEX, diel_type)).max())
+            if golden else float("nan"))
+        del x
+        t1 = time.time()
+        one = lobpcg_sep(
+            lambda v: maxwell.ama_bb(v, sy.d_a, sy.b, kps.diel, sy.shift),
+            lambda v: h_block(v, sy.inv), x0, NEV, rr_mode="f64", **opts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall_one = time.time() - t1
+        rep1 = validate.recompute(one.lambdas[:NEV].cpu().numpy(),
+                                  one.x[:NEV], a_apply, shift=sy.shift,
+                                  scal=cfg.scal, raise_on_spurious=False)
+        diff = float(np.abs(rep.omega_re - rep1.omega_re).max())
+        print(f"  {tag} solve_kpoint_sharded sc_curv N={n} alpha=(pi,0,0) "
+              f"n_grid={dist.get_world_size()}: status "
+              f"{Status(res.status).name} iters {res.iterations} "
+              f"{wall:.3f} s ({1e3 * wall / max(res.iterations, 1):.1f} "
+              f"ms/iter); peak memory per rank {peaks} GiB; "
+              f"max|omega-omega_re| {spur:.3e} max|omega_re - committed| "
+              f"{gold:.3e}; single card {Status(one.status).name} "
+              f"{one.iterations} iters {wall_one:.3f} s, max|omega_re - "
+              f"single card| {diff:.3e}", flush=True)
+        print(f"    omega_re {np.array2string(rep.omega_re, precision=6)}",
+              flush=True)
+        if res.status not in (Status.CONVERGED, Status.FLOOR):
+            problems.append(f"{tag}: status {Status(res.status).name}")
+        if rep.spurious or not spur <= SPURIOUS_TOL:
+            problems.append(f"{tag}: spurious ({spur:.3e})")
+        if golden and not gold <= GOLDEN_TOL:
+            problems.append(f"{tag}: {gold:.3e} from the committed row")
+        if not diff <= 1e-4:
+            problems.append(f"{tag}: {diff:.3e} from the single-card solve")
+        del one, res
+    return problems
+
+
+def _parallel_rank(rank: int, world: int, store: str, out_dir: str,
+                   device_type: str, n: int, golden: bool) -> None:
+    """One rank of phase 18: (a), (b) and (c) over the world, then its
+    problems and launch counts pickled into ``out_dir``."""
+    import pickle
+    import torch.distributed as dist
+    from pcx_torch.parallel.mesh import init_distributed, make_mesh
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    init_distributed(f"file://{store}", world, rank, device_type=device_type,
+                     timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT))
+    try:
+        dev = (torch.device("cuda", rank) if device_type == "cuda"
+               else torch.device("cpu"))
+        dtype = torch.complex64 if dev.type == "cuda" else torch.complex128
+
+        def say(msg):
+            if rank == 0:
+                print(msg, flush=True)
+
+        mesh = make_mesh(device_type=device_type)
+        say(f"  rank 0: world size {world}, backend "
+            f"{dist.get_backend()}, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names}")
+        problems = _parallel_batch(dev, dtype, mesh, n, golden, say)
+        more, counts = _parallel_sweep(dev, dtype, mesh, n, golden, out_dir,
+                                       say)
+        problems += more
+        problems += _parallel_sharded(dev, dtype, n, golden, say)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump((problems, counts), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mask_engine(n: int = N) -> None:
+    """(d): the native mask engine against numpy at N, with both times."""
+    from pcx_torch import geometry, native
+    print(f"  (d) mask engine {os.path.basename(native.build())}",
+          flush=True)
+    for lattice in MASK_LATTICES:
+        times, masks = {}, {}
+        for native in (True, False):
+            t0 = time.time()
+            masks[native] = (
+                geometry.edge_mask(n, lattice, cache=False,
+                                   use_native=native),
+                geometry.volume_mask(n, lattice, cache=False,
+                                     use_native=native))
+            times[native] = time.time() - t0
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(masks[True], masks[False]))
+        print(f"  (d) masks {lattice} N={n} (edge and volume): native "
+              f"{times[True]:.3f} s, numpy {times[False]:.3f} s, "
+              f"bit-identical {same}", flush=True)
+        if not same:
+            fail(f"mask engine {lattice} N={n}: native != numpy")
+
+
+def phase_parallel(dev, n: int = N, golden: bool = True) -> dict:
+    """Phase 18: solve_batch(mesh=), bandgap(mesh=) and the grid-sharded
+    solve on W = min(cards, 2) spawned ranks, one card each over NCCL (on
+    the CPU: two ranks over gloo), then the mask engine.  Returns rank 0's
+    kernel launches in bandgap(mesh=)."""
+    import multiprocessing as mp
+    import pickle
+    world = (min(torch.cuda.device_count(), 2) if dev.type == "cuda"
+             else 2)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    note = ("" if world > 1 else "; one card: the collectives carry "
+            "nothing, the two-rank runs wait for a machine with two cards "
+            "(the CPU tests over gloo hold the multi-rank logic)")
+    print(f"phase parallel: {world} rank(s) over {backend}, one card each"
+          f"{note}", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pcx_parallel_") as out:
+        src = os.path.join(out, "reference.json")
+        if golden:
+            shutil.copy(os.path.join(HERE, "output_c64", "chiral",
+                                     "bandgap_fcc.json"), src)
+        else:   # a rehearsal at a grid with no committed library
+            from pcx_torch.io import BandLibrary
+            from pcx_torch.lattices import k_path
+            lib = BandLibrary(src, "fcc", n, len(k_path("fcc")), NEV)
+            for i in range(lib.n_k):
+                lib.record(i, 1, 0.5, np.zeros(NEV))
+        reset_rows(src, os.path.join(out, "sweep0", "chiral",
+                                     "bandgap_fcc.json"), f"fcc_{n}",
+                   MESH_ROWS)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_parallel_rank,
+                             args=(r, world, os.path.join(out, "store"), out,
+                                   dev.type, n, golden))
+                 for r in range(world)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, PARALLEL_TIMEOUT - (time.time() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        if hung:
+            fail(f"parallel: ranks {hung} did not end within "
+                 f"{PARALLEL_TIMEOUT} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"parallel: rank exit codes {codes}")
+        results = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    print(f"  ranks done in {time.time() - t0:.3f} s", flush=True)
+    problems = [p for probs, _ in results for p in probs]
+    if problems:
+        fail(f"parallel: {'; '.join(problems)}")
+    phase_mask_engine(n)
+    return results[0][1]
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -1320,6 +1688,13 @@ def main() -> None:
         fail(f"K1 or K2 never launched in the experiments: {counts}")
     for rec in kernels:
         rec["launches_experiments"] = counts[rec["name"]]
+    counts = phase_parallel(dev)
+    print(f"phase launches: {counts} on rank 0 in bandgap(mesh=) of phase "
+          f"18 (rr_gram='pallas', refine='light')", flush=True)
+    for rec in kernels:
+        rec["launches_parallel"] = counts[rec["name"]]
+    if not all(rec["launches_parallel"] > 0 for rec in kernels):
+        fail(f"a kernel never launched in bandgap(mesh=): {counts}")
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,11 @@ torch.fft, as the JAX refine runs its f64 pair operator with XLA products;
 ``solvers.lobpcg``) mean what they mean there; the TPU-only
 ``real_boundary``, ``apply_chunk`` and ``segment_iters`` are refused.
 ``bandgap_wnk_check`` and ``bandgap_history_check`` read a band library.
+
+Several cards: ``KPointSolver.solve_batch(mesh=)`` and ``bandgap(mesh=)``
+spread groups of k-points over the "k" axis of a ``pcx_torch.parallel``
+mesh, one process per card (``torch.distributed``); ``bandgap(k_batch=)``
+groups them on one card.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pcx_torch import interop, lattices, validate
 from pcx_torch.config import (GAP, MAXITER, NEV, TOL, TYPE_CHIRAL,
@@ -54,6 +60,7 @@ from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.blocks import h_block, h_block_planes
 from pcx_torch.operators.dft import dft_mats, resample3, upsample_mat
 from pcx_torch.operators import dielectric as diel_mod
+from pcx_torch.parallel.mesh import GRID_AXIS, K_AXIS, axis_size
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.davidson import davidson_sep, jd_sep
 from pcx_torch.solvers.lobpcg import (Status, descent_sep, lobpcg_sep,
@@ -140,7 +147,9 @@ class EigenResult:
     omega: np.ndarray            # penalized frequencies (nev,)
     omega_re: np.ndarray         # recomputed frequencies (nev,)
     lambdas: np.ndarray          # raw Ritz values (m,), shift included
-    x: torch.Tensor              # Ritz vectors (m, 3, N, N, N)
+    x: Optional[torch.Tensor]    # Ritz vectors (m, 3, N, N, N); None for
+                                 # a member solve_batch(mesh=) left on the
+                                 # rank that solved it
     iterations: int
     wall_time: float
     status: int
@@ -674,6 +683,110 @@ class KPointSolver:
                                   verbose=verbose,
                                   raise_on_spurious=raise_on_spurious)
 
+    def solve_batch(self, alphas, x0s=None, seed: int = 0,
+                    validate_result: bool = True, mesh=None,
+                    raise_on_spurious: bool = True) -> list:
+        """Solve a group of k-points that share one block width (true along
+        a path), as ``pcx.bandstructure.KPointSolver.solve_batch``: member i
+        starts from ``x0s[i]`` (a list of blocks, fitted to the width, or a
+        stacked tensor) or cold with seed ``seed + i``, and every member's
+        ``wall_time`` is the group's wall time over its size.  A batch that
+        mixes block widths raises ``ValueError``.
+
+        Without ``mesh`` the members are solved one after another on this
+        solver's device by ``solve``; JAX solves them in lockstep on one
+        chip, each lane computing what its serial solve computes.
+
+        ``mesh``: a ``pcx_torch.parallel`` mesh; every rank calls with the
+        same arguments.  The group is padded to a multiple of the "k" axis
+        by repeating its last member (a padding copy is not solved: it
+        would repeat its original) and k row r solves and validates its
+        contiguous slice, as JAX's ``P("k")`` spec places it; the ranks of
+        a row's grid axis solve the same members, and its grid rank 0
+        supplies the results.  Every rank returns the group's results:
+        frequencies, Ritz values, iterations, status, wall time and
+        validation report are gathered to all ranks, while a member's
+        ``x`` stays on the ranks that solved it (None elsewhere), except
+        the last member's, which is broadcast to every rank: the sweep
+        warm-starts its next group from it.  The group's wall time is its
+        slowest row's.  A member that raises makes the whole group raise
+        the same error on every rank."""
+        alphas = [np.asarray(a, dtype=float) for a in alphas]
+        n_req = len(alphas)
+        n_k = 1 if mesh is None else axis_size(mesh, K_AXIS)
+        pad = (-n_req) % n_k
+        if pad:
+            if not isinstance(x0s, (list, tuple, type(None))):
+                raise ValueError(
+                    "x0s must be a list/tuple (not a pre-stacked tensor) "
+                    "when a mesh group needs padding — pass one block per "
+                    "k-point")
+            alphas = alphas + [alphas[-1]] * pad
+        ms = {self.block_width(a) for a in alphas}
+        if len(ms) != 1:
+            raise ValueError(f"batch mixes block widths {ms}")
+        m = ms.pop()
+        if x0s is not None and len(x0s) < n_req:
+            raise ValueError(f"{len(x0s)} start blocks for {n_req} k-points")
+
+        def run(i):
+            return self.solve(alphas[i],
+                              x0=None if x0s is None else x0s[i],
+                              seed=seed + i, validate_result=validate_result,
+                              raise_on_spurious=raise_on_spurious)
+
+        if mesh is None:
+            out = [run(i) for i in range(n_req)]
+            wall = sum(r.wall_time for r in out)
+            return [dataclasses.replace(r, wall_time=wall / n_req)
+                    for r in out]
+
+        per = len(alphas) // n_k
+        row = mesh.get_local_rank(K_AXIS)
+        lead = mesh.get_local_rank(GRID_AXIS) == 0
+        results, errors, wall = {}, {}, 0.0
+        for i in range(row * per, min((row + 1) * per, n_req)):
+            try:
+                results[i] = run(i)
+            except Exception as e:  # noqa: BLE001  every rank must reach
+                errors[i] = e       # the gather, which re-raises it
+                break
+            wall += results[i].wall_time
+        mine = ({i: dataclasses.replace(r, x=None)
+                 for i, r in results.items()} if lead else {}, errors, wall)
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, mine)
+        recs, errs = {}, {}
+        for got_recs, got_errs, _ in gathered:
+            recs.update(got_recs)
+            errs.update(got_errs)
+        if errs:
+            raise errs[min(errs)]
+        wall = max(w for _, _, w in gathered)
+
+        last = n_req - 1
+        src = _member_rank(mesh, n_req, last)
+        if dist.get_rank() == src:
+            x_last = results[last].x.contiguous()
+        else:
+            x_last = torch.empty((m, 3) + (self.cfg.n,) * 3, dtype=self.dtype,
+                                 device=self.device)
+        dist.broadcast(torch.view_as_real(x_last), src=src)
+        return [dataclasses.replace(
+            recs[i], wall_time=wall / n_req,
+            x=(x_last if i == last
+               else results[i].x if i in results else None))
+            for i in range(n_req)]
+
+
+def _member_rank(mesh, n_req: int, j: int) -> int:
+    """The global rank that supplies member ``j`` of a ``solve_batch`` group
+    of ``n_req`` k-points on ``mesh``: grid rank 0 of the k row whose slice
+    of the padded group holds it."""
+    n_k = axis_size(mesh, K_AXIS)
+    per = -(-n_req // n_k)
+    return int(mesh.mesh[j // per, 0])
+
 
 def _p_func_bf16(inv: sym.HermSymbol):
     """The preconditioner of ``solver="mixed"``: ``h_block`` with the
@@ -740,8 +853,8 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
             dtype: torch.dtype = torch.complex128, tol: float = TOL,
             maxiter: int = MAXITER, nev: int = NEV, seed: int = 0,
             verbose: bool = True, metrics_path: Optional[str] = None,
-            solver_opts: Optional[dict] = None,
-            solver_kw: Optional[dict] = None, *,
+            k_batch: int = 1, solver_opts: Optional[dict] = None,
+            solver_kw: Optional[dict] = None, mesh=None, *,
             device="cuda") -> list:
     """Full Brillouin-zone band sweep with per-k-point JSON checkpointing,
     resume, warm starts and failure containment; returns the list of failed
@@ -749,14 +862,42 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
 
     Port of ``pcx.bandstructure.bandgap`` (reference: bandgap,
     numerical_experiments.py:313-496) with the same signature and library
-    schema, except: ``device`` (default ``"cuda"``) and a torch ``dtype``;
-    no ``k_batch``/``mesh`` (the sweep is serial on one device).
+    schema, and ``device`` (default ``"cuda"``) and a torch ``dtype``.
     ``solver_opts`` is the JAX package's dict (e.g.
     ``{"rr_gram": "pallas"}``); ``solver_kw`` goes to ``KPointSolver``
     (e.g. ``{"solver": "nolock"}`` or ``{"refine": "light"}``, the
     production runner's default: a rejection by the light refine is
     re-validated by the complex128 refine before the cold retry).
+
+    ``k_batch`` > 1 solves consecutive groups of that many indices through
+    ``KPointSolver.solve_batch``; every member of a group warm-starts from
+    the last committed block when the group begins next to its index, and
+    a group that fails records each member not yet committed as failed.
+    ``mesh`` (a ``pcx_torch.parallel`` mesh; ``k_batch`` then defaults to
+    its "k" axis) spreads each group over the k axis, one member slice per
+    k row.  Every rank of the mesh calls ``bandgap`` with the same
+    arguments and keeps the same library in memory, so that pending rows,
+    warm starts and acceptance agree; rank 0 alone writes the library and
+    the metrics file and prints.  The seed salt of retried rows is drawn
+    on rank 0 and broadcast.  A light-refine rejection of a member is
+    re-validated by the rank that holds its block, and the verdict
+    broadcast.
     """
+    if mesh is not None and k_batch <= 1:
+        k_batch = axis_size(mesh, K_AXIS)
+    rank = 0 if mesh is None else dist.get_rank()
+
+    def say(*args, **kw):
+        if rank == 0:
+            print(*args, **kw)
+
+    def from_rank0(obj):
+        if mesh is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     cfg = ProblemConfig(n=n, lattice=lattice, diel_type=diel_type,
                         eps_opt=eps_opt, nev=nev)
     solver = KPointSolver(cfg, device=device, dtype=dtype,
@@ -766,16 +907,20 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
     n_k = alphas.shape[0]
 
     path = _library_path(output_dir, diel_type, lattice, eps_opt)
-    lib = BandLibrary(path, lattice, n, n_k, nev)
-    logger = RunLogger(metrics_path, echo=False)
+    lib = BandLibrary(path, lattice, n, n_k, nev) if rank == 0 else None
+    if mesh is not None:   # every rank holds rank 0's library
+        data = from_rank0(lib.data if lib else None)
+        if rank != 0:
+            lib = BandLibrary(path, lattice, n, n_k, nev, data=data)
+    logger = RunLogger(metrics_path if rank == 0 else None, echo=False)
 
     if indices is None:
         pending = lib.pending_indices()
         indices = pending if len(pending) < n_k else list(range(n_k))
         if not indices:
             if verbose:
-                print(f"{GREEN}All indices of {diel_type},{lattice} have "
-                      f"been computed without errors.{RESET}")
+                say(f"{GREEN}All indices of {diel_type},{lattice} have "
+                    f"been computed without errors.{RESET}")
             return []
 
     err_index = []
@@ -788,10 +933,11 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
     failed_before = set(lib.failed_indices())
     salt = 0
     if failed_before:
-        salt = int(np.random.SeedSequence().entropy % 100003) or 1
+        salt = from_rank0(int(np.random.SeedSequence().entropy % 100003)
+                          or 1)
         if verbose:
-            print(f"{YELLOW}{len(failed_before)} previously-failed rows "
-                  f"will retry with seed salt {salt}{RESET}")
+            say(f"{YELLOW}{len(failed_before)} previously-failed rows "
+                f"will retry with seed salt {salt}{RESET}")
 
     def _seed_for(i):
         return seed + i + (salt if i in failed_before else 0)
@@ -825,14 +971,34 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
                     f"(band {int(np.argmax(bound))}; subspace likely "
                     f"missing a near-degenerate direction){stats}")
 
-    def _accept_or_escalate(i, result):
+    def _f64_report(i, result, owner):
+        """The complex128 refine's report of ``result``, computed by the
+        rank ``owner`` that holds its block and broadcast (here when
+        ``owner`` is None)."""
+        if owner is None:
+            return solver._refine_report(alphas[i], result.x,
+                                         raise_on_spurious=False,
+                                         mode="f64")[0]
+        box = [None]
+        if rank == owner:
+            try:
+                box[0] = _f64_report(i, result, None)
+            except Exception as e:  # noqa: BLE001  raised on every rank
+                box[0] = e
+        dist.broadcast_object_list(box, src=owner)
+        if isinstance(box[0], BaseException):
+            raise box[0]
+        return box[0]
+
+    def _accept_or_escalate(i, result, owner=None):
         """``_accept``, with one escalation (pcx bandstructure.py:
         1700-1734): when the light refine rejects a solve on the spurious
         gate or the frequency-error bound, re-validate it with the
         complex128 refine before paying the cold retry, since the light
         refine's statistics sit at the complex64 noise floor.  Returns the
         result to commit (its report replaced after an escalation); raises
-        like ``_accept`` when the complex128 refine rejects it too."""
+        like ``_accept`` when the complex128 refine rejects it too.
+        ``owner``: the rank holding the block of a mesh group's member."""
         try:
             _accept(result)
             return result
@@ -841,16 +1007,15 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
             if (solver.refine != "light"
                     or not ("under-converged" in msg or "spurious" in msg)):
                 raise
-            print(f"{YELLOW}k={i}: light-refine gate failed ({e}); "
-                  f"re-validating with the f64 refine{RESET}")
-            report, _theta = solver._refine_report(
-                alphas[i], result.x, raise_on_spurious=False, mode="f64")
+            say(f"{YELLOW}k={i}: light-refine gate failed ({e}); "
+                f"re-validating with the f64 refine{RESET}")
+            report = _f64_report(i, result, owner)
             r2 = dataclasses.replace(result, report=report,
                                      omega=report.omega_pnt,
                                      omega_re=report.omega_re)
             _accept(r2)
-            print(f"{GREEN}k={i}: f64 re-validation PASSED — accepting "
-                  f"(light-refine false rejection){RESET}")
+            say(f"{GREEN}k={i}: f64 re-validation PASSED — accepting "
+                f"(light-refine false rejection){RESET}")
             return r2
 
     # A light refine leaves a spurious verdict to _accept_or_escalate (the
@@ -858,24 +1023,48 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
     spurious_kw = ({"raise_on_spurious": False}
                    if solver.refine == "light" else {})
     last_commit_t = [time.time()]
+    committed_grp = []   # members of the current group already recorded
 
     def _commit(i, result):
         nonlocal x_prev, prev_idx
+        committed_grp.append(i)
         lib.record(i, result.iterations, result.wall_time, result.omega_re)
         logger.log_solve(RunLogger.from_result("bandgap_k", cfg,
                                                alphas[i], result))
         x_prev, prev_idx = result.x, i
         if verbose:
             now = time.time()
-            print(f"Gap {i + 1}/{n_k} ({lattice}), "
+            say(f"Gap {i + 1}/{n_k} ({lattice}), "
                   f"alpha/pi = {np.round(alphas[i] / np.pi, 3)}: "
                   f"iters = {result.iterations}, "
                   f"t = {result.wall_time:<6.2f}s, "
                   f"wall = {now - last_commit_t[0]:.1f}s")
             last_commit_t[0] = now
 
-    for i in indices:
+    # Groups of k_batch consecutive indices through solve_batch (over the
+    # mesh's k axis, if any); single indices through solve.
+    groups = ([indices[j:j + k_batch]
+               for j in range(0, len(indices), k_batch)]
+              if k_batch > 1 else [[i] for i in indices])
+    for grp in groups:
+        committed_grp.clear()
         try:
+            if len(grp) > 1:
+                # Every member warm-starts from the last committed block
+                # when the group begins next to its index (pcx
+                # bandstructure.py:1758-1777).
+                x0s = ([x_prev] * len(grp)
+                       if (x_prev is not None and prev_idx is not None
+                           and abs(grp[0] - prev_idx) <= 1) else None)
+                results = solver.solve_batch([alphas[i] for i in grp],
+                                             x0s=x0s, seed=_seed_for(grp[0]),
+                                             mesh=mesh, **spurious_kw)
+                for j, (i, result) in enumerate(zip(grp, results)):
+                    owner = (None if mesh is None
+                             else _member_rank(mesh, len(grp), j))
+                    _commit(i, _accept_or_escalate(i, result, owner))
+                continue
+            i = grp[0]
             warm = (x_prev is not None and prev_idx is not None
                     and abs(i - prev_idx) <= 1)
             if not warm and i in failed_before:
@@ -896,9 +1085,9 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
                                 raise
                             continue   # try the other computed neighbour
                         if verbose:
-                            print(f"{YELLOW}k={i}: warm-feeder solve of "
-                                  f"computed neighbor k={j} "
-                                  f"({feeder.iterations} iters){RESET}")
+                            say(f"{YELLOW}k={i}: warm-feeder solve of "
+                                f"computed neighbor k={j} "
+                                f"({feeder.iterations} iters){RESET}")
                         x_prev, prev_idx = feeder.x, j
                         warm = True
                         break
@@ -916,8 +1105,8 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
                 # 1817-1845).
                 if not warm or _is_device_error(e):
                     raise
-                print(f"{YELLOW}Warm-started k={i} failed ({e}); "
-                      f"retrying with a cold start{RESET}")
+                say(f"{YELLOW}Warm-started k={i} failed ({e}); "
+                    f"retrying with a cold start{RESET}")
                 retry_cold = True
             if retry_cold:
                 x_prev = None   # free the warm block before re-solving
@@ -931,18 +1120,20 @@ def bandgap(n: int, lattice: str, diel_type: str = TYPE_CHIRAL,
             # on; a device fault aborts it, since every later solve would
             # fail too and mass-fail the library (resume retries).
             if _is_device_error(e):
-                print(f"{RED}DEVICE ERROR at k-point {i}: {e} — aborting "
-                      f"sweep (resume will retry){RESET}")
+                say(f"{RED}DEVICE ERROR at k-points {grp}: {e} — aborting "
+                    f"sweep (resume will retry){RESET}")
                 raise
-            print(f"{RED}WARNING: Error at k-point {i}: {e}{RESET}")
-            err_index.append(i)
-            lib.record(i, -1, -1, None)
+            say(f"{RED}WARNING: Error at k-points {grp}: {e}{RESET}")
+            for i in grp:
+                if i not in committed_grp:   # recorded ones stay
+                    err_index.append(i)
+                    lib.record(i, -1, -1, None)
             x_prev, prev_idx = None, None
 
     if err_index:
-        print(f"{RED}Error occurs at indices: {err_index}{RESET}")
+        say(f"{RED}Error occurs at indices: {err_index}{RESET}")
     elif verbose:
-        print(f"{GREEN}All indices computed correctly.{RESET}")
+        say(f"{GREEN}All indices computed correctly.{RESET}")
     return err_index
 
 

@@ -7,8 +7,9 @@ cache, the reference-layout index conversions and
 ``volume_adjacent_edge_masks``.  The material region is a boolean
 (3, N, N, N) mask, one bool per Yee edge DoF, axis order (component, i, j,
 k), and a boolean (N, N, N) mask of cell centres for the off-diagonal
-entries of a tensor dielectric.  The masks are built with numpy (the C++
-engine of ``pcx/native.py`` is not ported) and cached as bit-packed npz
+entries of a tensor dielectric.  The masks are built by the C++ engine
+(``pcx_torch.native``, ``use_native=True``, the default) or with numpy
+(``use_native=False``), bit for bit the same, and cached as bit-packed npz
 files under ``CACHE_DIR`` (``$PCX_GEOMETRY_CACHE``, default
 ``data/geometry_cache/`` of the checkout), in the JAX package's format.
 
@@ -200,9 +201,11 @@ def _save_mask(path: str, mask: np.ndarray) -> None:
 
 
 def edge_mask(n: int, lattice: Optional[str], cache: bool = True,
-              rng: Optional[np.random.Generator] = None) -> np.ndarray:
+              rng: Optional[np.random.Generator] = None,
+              use_native: bool = True) -> np.ndarray:
     """Boolean (3, N, N, N) mask of material edge DoFs, read from and
-    written to the cache unless ``cache=False``.
+    written to the cache unless ``cache=False``; built by the C++ engine
+    (a failed build raises) or, with ``use_native=False``, by numpy.
 
     ``lattice=None`` produces the reference's random fake (~37.2% fill,
     dielectric.py:74-77) for flag-less smoke runs.
@@ -215,19 +218,25 @@ def edge_mask(n: int, lattice: Optional[str], cache: bool = True,
     if mask is not None:
         return mask
     ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
-    flag = FLAG_REGISTRY[lattice]
-    mask = np.empty((3, n, n, n), dtype=bool)
-    for c in range(3):
-        mask[c] = flag(*_transform(edge_coords(n, c), ct_inv_t))
+    if use_native:
+        from pcx_torch import native
+        mask = native.edge_mask(n, lattice, ct_inv_t)
+    else:
+        flag = FLAG_REGISTRY[lattice]
+        mask = np.empty((3, n, n, n), dtype=bool)
+        for c in range(3):
+            mask[c] = flag(*_transform(edge_coords(n, c), ct_inv_t))
     if cache:
         _save_mask(path, mask)
     return mask
 
 
 def volume_mask(n: int, lattice: Optional[str], cache: bool = True,
-                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+                rng: Optional[np.random.Generator] = None,
+                use_native: bool = True) -> np.ndarray:
     """Boolean (N, N, N) mask of material cell centers (``lattice=None``:
-    the random fake, as ``edge_mask``; ``cache`` as there)."""
+    the random fake, as ``edge_mask``; ``cache`` and ``use_native`` as
+    there)."""
     if lattice is None:
         rng = rng or np.random.default_rng(1)
         return rng.random((n, n, n)) < 0.372
@@ -236,8 +245,12 @@ def volume_mask(n: int, lattice: Optional[str], cache: bool = True,
     if mask is not None:
         return mask
     ct_inv_t = np.linalg.inv(lattices.ct_matrix(lattice).T)
-    mask = FLAG_REGISTRY[lattice](*_transform(volume_coords(n), ct_inv_t))
-    mask = np.broadcast_to(mask, (n, n, n)).copy()
+    if use_native:
+        from pcx_torch import native
+        mask = native.volume_mask(n, lattice, ct_inv_t)
+    else:
+        mask = FLAG_REGISTRY[lattice](*_transform(volume_coords(n), ct_inv_t))
+        mask = np.broadcast_to(mask, (n, n, n)).copy()
     if cache:
         _save_mask(path, mask)
     return mask

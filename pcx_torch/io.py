@@ -27,17 +27,28 @@ FAILED = [-1, -1]
 class BandLibrary:
     """Checkpointed per-k-point results, rewritten after every k-point."""
 
-    def __init__(self, path: str, lattice: str, n: int, n_k: int, nev: int):
+    def __init__(self, path: str, lattice: str, n: int, n_k: int, nev: int,
+                 data: Optional[dict] = None):
+        """``data``: the library's contents, held in memory only: ``path``
+        is neither read nor written (the ranks of a multi-card sweep other
+        than its one writer)."""
         self.path = path
         self.key_it = f"{lattice}_{n}_iterations"
         self.key_fq = f"{lattice}_{n}_frequencies"
         self.n_k = n_k
         self.nev = nev
+        self._write = data is None
         self._lib = {}
-        self._load_or_init()
+        self._load_or_init(data)
 
-    def _load_or_init(self):
-        if os.path.exists(self.path):
+    @property
+    def data(self) -> dict:
+        return self._lib
+
+    def _load_or_init(self, data):
+        if data is not None:
+            self._lib = data
+        elif os.path.exists(self.path):
             with open(self.path) as f:
                 self._lib = json.load(f)
         if self.key_it not in self._lib:
@@ -78,6 +89,8 @@ class BandLibrary:
         self.flush()
 
     def flush(self):
+        if not self._write:
+            return
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:

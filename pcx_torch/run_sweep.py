@@ -14,7 +14,7 @@ refine when it rejects).
 
 Usage:
   python -m pcx_torch.run_sweep --n 120 --lattice sc_curv [--diel chiral]
-      [--output output_c64] [--gap 20] [--max-rounds 8]
+      [--output output_c64] [--gap 20] [--max-rounds 8] [--k-batch 1]
       [--solver-opt rr_gram=pallas] [--refine light|f64|off]
 """
 
@@ -41,8 +41,8 @@ err = bandgap(n={n}, lattice={lattice!r}, diel_type={diel!r},
               dtype=(torch.complex64 if device.type == "cuda"
                      else torch.complex128),
               maxiter={maxiter}, nev={nev}, metrics_path={metrics!r},
-              solver_opts={solver_opts!r}, solver_kw={solver_kw!r},
-              device=device)
+              k_batch={k_batch}, solver_opts={solver_opts!r},
+              solver_kw={solver_kw!r}, device=device)
 sys.exit(2 if err else 0)
 """
 
@@ -72,8 +72,8 @@ def main(argv=None):
     ap.add_argument("--nev", type=int, default=10)
     ap.add_argument("--maxiter", type=int, default=500)
     ap.add_argument("--k-batch", type=int, default=1,
-                    help="k-points per batch; only 1 (the port sweeps one "
-                         "k-point at a time on one device)")
+                    help="k-points per solve_batch group on the one device "
+                         "(bandgap's k_batch; default 1: one at a time)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the worker: cuda (default) or cpu")
     ap.add_argument("--max-rounds", type=int, default=8,
@@ -104,9 +104,8 @@ def main(argv=None):
                          "(the complex128 refine) or 'off' (the solver's "
                          "own Ritz pairs)")
     args = ap.parse_args(argv)
-    if args.k_batch != 1:
-        ap.error("--k-batch other than 1 is not supported: the port sweeps "
-                 "one k-point at a time on one device")
+    if args.k_batch < 1:
+        ap.error(f"--k-batch must be at least 1, got {args.k_batch}")
     if args.device.startswith("cuda"):
         import torch
         if not torch.cuda.is_available():
@@ -124,8 +123,8 @@ def main(argv=None):
                            eps_opt=args.eps_opt,
                            output=os.path.abspath(args.output), gap=args.gap,
                            nev=args.nev, maxiter=args.maxiter,
-                           metrics=args.metrics, solver_opts=solver_opts,
-                           solver_kw=solver_kw)
+                           k_batch=args.k_batch, metrics=args.metrics,
+                           solver_opts=solver_opts, solver_kw=solver_kw)
 
     hb_path = os.path.join(
         tempfile.gettempdir(),

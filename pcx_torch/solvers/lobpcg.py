@@ -52,10 +52,10 @@ class SolveResult(NamedTuple):
 _NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def col_normalize(block: torch.Tensor, eps: float):
+def col_normalize(block: torch.Tensor, eps: float, reduce_axis=None):
     """Unit columns (rows of the block) and their norms; norms below
     ``eps`` divide by ``eps``."""
-    n = rr.colnorms(block)
+    n = rr.colnorms(block, reduce_axis)
     return rr.scale_cols(block, 1.0 / n.clamp(min=eps)), n
 
 
@@ -99,6 +99,7 @@ def lobpcg_sep(
     rr_mode: str = "auto",
     refresh_every: int = 10,
     floor_patience: int = 9,
+    reduce_axis=None,
     use_p: bool = True,
     rr_mirror: bool = False,
     ortho: str = "svqb",
@@ -115,8 +116,15 @@ def lobpcg_sep(
     values; here it is ``"f64"``, since the complex128 eigh is native.
     ``ortho``: ``"svqb"`` (SVQB with dropping) or ``"mgs"`` (masked MGS).
     ``locking=False`` is the reference's nolock variant (paper_2/
-    lobpcg.py:76-193); ``use_p=False`` the two-term descent.  The mesh
-    reduction of the JAX solver (``reduce_axis``) is not ported.
+    lobpcg.py:76-193); ``use_p=False`` the two-term descent.
+
+    ``reduce_axis``: the process group over which the vector dimension of
+    ``x0`` is sharded (the grid-sharded solve, ``pcx_torch.parallel.
+    solve``).  Every norm and Gram is all-reduced over it, so the Ritz
+    values, residual norms and masks that the host's status rules read are
+    the same on every rank, and every rank takes the same branches.  As in
+    JAX, where ``shard_map`` shows the solver its local shard, the noise
+    floor of the FLOOR rule is computed from the LOCAL shard's dimension.
     """
     if ortho not in ("svqb", "mgs"):
         raise ValueError(f"unknown ortho {ortho!r}")
@@ -144,19 +152,21 @@ def lobpcg_sep(
     split = rr.split_for(rdtype)
     ortho_fn = rr.masked_svqb_drop if ortho == "svqb" else rr.masked_mgs
     ones_m = torch.ones((m,), dtype=rdtype, device=dev)
+    red = reduce_axis
 
     # ---- initialization: Ritz-rotate the start block ---------------------
     x = _flat(x0)
     if normalize:
-        x, _ = col_normalize(x, tiny)
+        x, _ = col_normalize(x, tiny, red)
     if use_f64_rr:
-        xf, _ = rr.masked_loewdin(x, ones_m, jitter)
+        xf, _ = rr.masked_loewdin(x, ones_m, jitter, reduce_axis=red)
         hxf = hf(xf)
-        theta0, v0 = rr.eigh_split(rr.hermitize(rr.gram_f64(xf, hxf)), split)
+        theta0, v0 = rr.eigh_split(
+            rr.hermitize(rr.gram_f64(xf, hxf, reduce_axis=red)), split)
         c0 = v0.to(cdtype)
     else:
         xf, hxf = x, hf(x)
-        theta0, c0 = rr.rayleigh_ritz(xf, hxf)
+        theta0, c0 = rr.rayleigh_ritz(xf, hxf, red)
         theta0 = theta0.real
     x, hx = rr.mix(c0, xf), rr.mix(c0, hxf)
     lambdas = theta0.to(rdtype)
@@ -170,7 +180,7 @@ def lobpcg_sep(
         if refresh_every > 0 and it > 0 and it % refresh_every == 0:
             hx, hp = hf(x), hf(p)
         r = lambdas.to(cdtype)[:, None] * x - hx
-        res_t = rr.colnorms(r)
+        res_t = rr.colnorms(r, red)
         host = torch.cat((res_t, lambdas)).cpu().numpy()   # the one sync
         res, lam = host[:m], host[m:]
         if it > 0 and np.isnan(lam).any():
@@ -210,17 +220,17 @@ def lobpcg_sep(
                   if locking else ones_m)
         acol = active[:, None]
         w = _flat(p_func((acol * r).reshape(shape))) * acol
-        wf, _ = col_normalize(w, tiny)
+        wf, _ = col_normalize(w, tiny, red)
         wf, _, w_ok = ortho_fn(wf, active, noise_floor, against=(x,),
-                               passes=ortho_passes)
+                               passes=ortho_passes, reduce_axis=red)
         hwf = hf(wf)
         p_act = active * (1.0 if it > 0 and use_p else 0.0)
         pcol = p_act[:, None]
-        pf, pn = col_normalize(pcol * p, tiny)
+        pf, pn = col_normalize(pcol * p, tiny, red)
         hpf = (pcol * hp) * (1.0 / pn.clamp(min=tiny))[:, None]
         pf, hpf, p_ok = ortho_fn(pf, p_act, noise_floor, hblock=hpf,
                                  against=(x, wf), h_against=(hx, hwf),
-                                 passes=ortho_passes)
+                                 passes=ortho_passes, reduce_axis=red)
 
         basis_mask = torch.cat((ones_m, w_ok, p_ok)).to(torch.float64)
         keep = basis_mask[:, None] * basis_mask[None, :]
@@ -231,13 +241,13 @@ def lobpcg_sep(
                 for j, hbj in enumerate(hblocks):
                     if rr_mirror and j < i:
                         continue
-                    rows[i][j] = rr.gram_f64(bi, hbj)
+                    rows[i][j] = rr.gram_f64(bi, hbj, reduce_axis=red)
                     if rr_mirror and j > i:
                         rows[j][i] = rows[i][j].mH
             t = rr.hermitize(torch.cat([torch.cat(row, 1) for row in rows]))
         else:
             t = rr.hermitize(torch.cat([
-                torch.cat([rr.gram(bi, hbj) for hbj in hblocks], 1)
+                torch.cat([rr.gram(bi, hbj, red) for hbj in hblocks], 1)
                 for bi in blocks]))
         t = t * keep.to(real_dtype(t.dtype))
         # Dead-coordinate sentinel strictly below any Ritz value

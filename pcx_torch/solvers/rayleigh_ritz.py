@@ -10,6 +10,12 @@ embedding with emulated-f64 repairs, because the TPU has no complex128.  On
 the card complex128 is native, so ``eigh_split`` is ``torch.linalg.eigh`` on
 complex128 with the same graded degeneracy split (``split_for``), which
 decides which directions SVQB drops.
+
+``reduce_axis`` (pcx's ``axis_name``) is the process group over which the
+long dimension D of the blocks is sharded: ``gram``, ``gram_f64``, the
+orthonormalizers and ``rayleigh_ritz`` all-reduce every partial Gram and
+sum of squares over it before using it (JAX's ``psum``); None, the
+default, changes nothing.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from pcx_torch.utils import norms, real_dtype
+from pcx_torch.utils import all_reduce_sum, norms, real_dtype
 
 C128 = torch.complex128
 
@@ -47,12 +53,14 @@ def divisor_chunk(d: int, target: int) -> int:
     return target
 
 
-def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0,
+             reduce_axis=None) -> torch.Tensor:
     """G[i, j] = <x_i, y_j> (complex128; float64 for real blocks) for
     row-blocks x (p, D), y (q, D), as working-precision partials over
     D-chunks summed in double: the error grows with sqrt(chunk), not
     sqrt(D) (twin of ``rayleigh_ritz.gram_f64_p``).  ``chunk=0`` picks
-    ``divisor_chunk(D, GRAM_CHUNK)``."""
+    ``divisor_chunk(D, GRAM_CHUNK)``; the double sum is all-reduced over
+    ``reduce_axis``."""
     p, d = x.shape
     q = y.shape[0]
     chunk = chunk or divisor_chunk(d, GRAM_CHUNK)
@@ -66,14 +74,15 @@ def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     # conj(G_c) = X_c Y_c^H: the conjugate rides on the transposed operand.
     part = torch.matmul(xc, yc.mH)
     acc = C128 if part.is_complex() else torch.float64
-    return torch.conj_physical(part.sum(dim=0, dtype=acc))
+    g = all_reduce_sum(part.sum(dim=0, dtype=acc), reduce_axis)
+    return torch.conj_physical(g)
 
 
-def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def gram(x: torch.Tensor, y: torch.Tensor, reduce_axis=None) -> torch.Tensor:
     """The Gram conj(X) Y^T (p, q) in the working precision, for
     projections (twin of ``rayleigh_ritz.gram_p32``): ``gram_f64``
     rounded, as one GEMM over all of D loses digits on the card."""
-    return gram_f64(x, y).to(x.dtype)
+    return gram_f64(x, y, reduce_axis=reduce_axis).to(x.dtype)
 
 
 def mix(c: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -116,7 +125,7 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
                      drop_tol: float, hblock: Optional[torch.Tensor] = None,
                      against: Sequence[torch.Tensor] = (),
                      h_against: Sequence[torch.Tensor] = (),
-                     passes: int = 2):
+                     passes: int = 2, reduce_axis=None):
     """SVQB orthonormalization with dependent-direction DROPPING
     (twin of ``rayleigh_ritz.masked_svqb_drop_p``).
 
@@ -141,12 +150,12 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     pairs = list(zip(against, h_against or [None] * len(against)))
     for pno in range(passes):
         for base, hbase in pairs:
-            coeff = gram(base, block)
+            coeff = gram(base, block, reduce_axis)
             block = block - mix(coeff, base)
             if hb is not None and hbase is not None:
                 hb = hb - mix(coeff, hbase)
         keep = mask[:, None] * mask[None, :]
-        g = hermitize(gram_f64(block, block)) * keep
+        g = hermitize(gram_f64(block, block, reduce_axis=reduce_axis)) * keep
         if pno == 0:
             gscale = g.real.abs().max() + g.imag.abs().max()
             lam_min = torch.clamp(lam_fac * split * gscale,
@@ -237,15 +246,17 @@ def eigh_pencil_whiten(t: torch.Tensor, g: torch.Tensor, split: float = 1e-10
     return theta.to(real_dtype(t.dtype)), (s @ v).to(t.dtype)
 
 
-def rayleigh_ritz(s: torch.Tensor, hs: torch.Tensor):
+def rayleigh_ritz(s: torch.Tensor, hs: torch.Tensor, reduce_axis=None):
     """Plain Rayleigh-Ritz on a row-block: Ritz values and vectors of H in
     span(s) (reference: rayleigh_ritz_chol_sep, orthogonalization.py:
     140-154)."""
-    return eigh_pencil(hermitize(gram(s, hs)), hermitize(gram(s, s)))
+    return eigh_pencil(hermitize(gram(s, hs, reduce_axis)),
+                       hermitize(gram(s, s, reduce_axis)))
 
 
 def masked_loewdin(block: torch.Tensor, mask: torch.Tensor, jitter: float,
-                   hblock: Optional[torch.Tensor] = None, passes: int = 1):
+                   hblock: Optional[torch.Tensor] = None, passes: int = 1,
+                   reduce_axis=None):
     """Loewdin (symmetric) orthonormalization of the active rows: Q =
     mix(S, B), S = (G + pad)^(-1/2) from the complex128-accumulated Gram,
     its eigenvalues clamped at ``jitter`` times the largest.  Masked-out
@@ -255,7 +266,8 @@ def masked_loewdin(block: torch.Tensor, mask: torch.Tensor, jitter: float,
     dead = torch.diag(1.0 - mask64)
     rmask = mask.to(real_dtype(block.dtype))[:, None]
     for _ in range(passes):
-        g = hermitize(gram_f64(block, block)) * keep + dead
+        g = (hermitize(gram_f64(block, block, reduce_axis=reduce_axis))
+             * keep + dead)
         w, v = eigh_split(g, 1e-10)
         w = torch.maximum(w, jitter * w[-1].clamp(min=1e-30))
         s = ((v * (1.0 / torch.sqrt(w))) @ v.mH).to(block.dtype)
@@ -268,7 +280,8 @@ def masked_loewdin(block: torch.Tensor, mask: torch.Tensor, jitter: float,
 def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
                hblock: Optional[torch.Tensor] = None,
                against: Sequence[torch.Tensor] = (),
-               h_against: Sequence[torch.Tensor] = (), passes: int = 2):
+               h_against: Sequence[torch.Tensor] = (), passes: int = 2,
+               reduce_axis=None):
     """Masked modified Gram-Schmidt with dependent-column dropping: the
     active rows are projected off the orthonormal rows of each ``against``
     base, then orthonormalized one after another; a row whose residual
@@ -281,7 +294,7 @@ def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
     msk = mask.to(rdtype).clone()
     for base, hbase in zip(against, h_against or [None] * len(against)):
         for _ in range(passes):
-            coeff = gram(base, block)
+            coeff = gram(base, block, reduce_axis)
             block = block - mix(coeff, base)
             if hblock is not None and hbase is not None:
                 hblock = hblock - mix(coeff, hbase)
@@ -293,11 +306,11 @@ def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
         hcol = hq[i:i + 1] if hq is not None else None
         wsel = ((idx < i).to(rdtype) * msk)[:, None]
         for _ in range(passes):
-            coeff = gram(q, col) * wsel
+            coeff = gram(q, col, reduce_axis) * wsel
             col = col - mix(coeff, q)
             if hq is not None:
                 hcol = hcol - mix(coeff, hq)
-        nrm = colnorms(col)[0]
+        nrm = colnorms(col, reduce_axis)[0]
         ok = msk[i] * (nrm > drop_tol).to(rdtype)
         scale = ok / nrm.clamp(min=tiny)
         q[i] = col[0] * scale

@@ -1,5 +1,6 @@
 """Small utilities: robust sqrt, dtype helpers, per-vector dots and norms,
-device-synchronized timing, device memory and convergence rates.
+the sum over a process group, device-synchronized timing, device memory
+and convergence rates.
 
 Port of ``pcx/utils.py``.  A block of m vectors is a tensor of shape
 ``(m, ...)``: the vector index first, each vector contiguous.
@@ -12,6 +13,7 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 RED = "\033[31m"
 GREEN = "\033[32m"
@@ -49,9 +51,29 @@ def norm(x) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.as_tensor(x))
 
 
-def norms(x: torch.Tensor) -> torch.Tensor:
-    """Per-vector 2-norms of a block (m, ...) -> (m,) in the real dtype."""
-    return torch.linalg.vector_norm(as_blockvec(x), dim=1)
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of the process group ``group`` (JAX's
+    ``psum`` over a mesh axis); ``t`` itself when ``group`` is None.  The
+    sum is written into ``t`` when it is contiguous, and complex tensors
+    travel as their real view."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    dist.all_reduce(torch.view_as_real(t) if t.is_complex() else t,
+                    group=group)
+    return t
+
+
+def norms(x: torch.Tensor, reduce_axis=None) -> torch.Tensor:
+    """Per-vector 2-norms of a block (m, ...) -> (m,) in the real dtype.
+    ``reduce_axis``: the process group over which the vector dimension is
+    sharded; the sums of squares are all-reduced over it before the root
+    (pcx ``norms(axis_name=)``)."""
+    if reduce_axis is None:
+        return torch.linalg.vector_norm(as_blockvec(x), dim=1)
+    v = as_blockvec(x)
+    sq = torch.sum((v.conj() * v).real if v.is_complex() else v * v, dim=1)
+    return torch.sqrt(all_reduce_sum(sq, reduce_axis))
 
 
 def dots(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

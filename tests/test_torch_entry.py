@@ -158,6 +158,8 @@ def test_run_sweep_completes_a_sweep_under_the_supervisor(tmp_path):
 
 
 def test_run_sweep_refuses_k_batch():
-    r = _run(["-m", "pcx_torch.run_sweep", "--k-batch", "2", "--device",
+    """--k-batch goes to bandgap(k_batch=) since the port has solve_batch;
+    a group size below 1 is refused before any worker starts."""
+    r = _run(["-m", "pcx_torch.run_sweep", "--k-batch", "0", "--device",
               "cpu"])
     assert r.returncode != 0 and "--k-batch" in r.stderr

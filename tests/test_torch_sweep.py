@@ -184,10 +184,24 @@ def test_bandgap_warm_failure_cold_retry(tmp_path, monkeypatch):
     assert lib.failed_indices() == [] and lib.pending_indices() == []
 
 
-def test_bandgap_takes_no_k_batch_or_mesh(tmp_path):
-    for kw in ({"k_batch": 2}, {"mesh": None}):
-        with pytest.raises(TypeError):
-            bs.bandgap(output_dir=str(tmp_path), **SWEEP, **kw)
+def test_bandgap_takes_no_k_batch_or_mesh(tmp_path, monkeypatch):
+    """The sweep now takes the JAX keywords k_batch and mesh: k_batch=2
+    without a mesh solves indices [0, 1] as one solve_batch group on this
+    device and the lone [2] by solve, and records all three."""
+    calls = []
+    batch = bs.KPointSolver.solve_batch
+
+    def spy(self, alphas, **kw):
+        calls.append((len(alphas), kw["mesh"]))
+        return batch(self, alphas, **kw)
+
+    monkeypatch.setattr(bs.KPointSolver, "solve_batch", spy)
+    err = bs.bandgap(output_dir=str(tmp_path), indices=[0, 1, 2], k_batch=2,
+                     mesh=None, verbose=False, **SWEEP)
+    assert err == [] and calls == [(2, None)]
+    lib = BandLibrary(str(tmp_path / "chiral/bandgap_sc_flat1.json"),
+                      "sc_flat1", 8, 16, 4)
+    assert lib.pending_indices() == list(range(3, 16))
 
 
 def test_bandgap_matches_pcx_sweep(tmp_path):
