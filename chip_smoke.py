@@ -7,13 +7,20 @@ failure ends the run with a non-zero exit:
 
 1. device  — require CUDA; print the card's name and power limit, and the
              peak rates the kernels' bounds use: IEEE f32 on the CUDA cores
-             (K1) and 3xTF32 on the tensor cores (K2, K3).
+             (K1, K2) and 3xTF32 on the tensor cores (K3).
 2. build   — compile the CUDA kernels (nvcc, sm_90a, one process per
              source, all at once) from the sources.
 3. k1      — K1 resid_precond vs its plain version at m=16, N=120.
-4. k2      — K2 axis_dft vs the einsum at B=48, N=120, one pass (and both
-             against complex128) and a full dft3 forward and back (against
-             torch.fft.fftn); timed beside torch.matmul on the permuted view.
+4. k2      — K2 axis_dft (the mixed-radix FFT) at B=48, N=100, 120, 150,
+             each direction against the einsum and complex128 (5e-6 of the
+             output scale), dft3 forward against torch.fft.fftn and forward
+             then inverse against x; the time per pass beside its bytes
+             bound, the plan's operations and their time at the f32 peak,
+             the one-axis torch.fft.fft (the library call) and
+             torch.matmul on the permuted view, the tensor-map encode per
+             launch; then both directions at N=16, 32,
+             34 (a dense stage), 50, 60, 75 (odd K: cp.async), and the
+             wrapper's host cost per call.
 5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
              (and both against complex128); timed beside the stacked
              ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
@@ -180,9 +187,15 @@ SPURIOUS_TOL = 1e-3      # |omega - omega_re| gate (pcx validate.recompute)
 GOLDEN_TOL = 3.5e-3      # complex64 golden scale (README, ROADMAP R3)
 HBM_BYTES_S = 3.35e12    # H100 SXM device-memory rate (NVIDIA data sheet)
 # Dense TF32 on the H100 SXM tensor cores at 700 W (NVIDIA data sheet); the
-# 3xTF32 split of K2 and K3 runs three TF32 products per f32 product.
+# 3xTF32 split of K3 runs three TF32 products per f32 product.
 TF32X3_FLOPS = 495e12 / 3
 FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
+# Phase 4: K2 at the solver's B = 3 m, on the grids of the main path and
+# pack_cmp, then on those of phase 12, the coarse starts (N // 2) and a dense
+# stage (34 = 2 x 17); each pass within 5e-6 of the output scale.
+K2_B, K2_TOL = 48, 5e-6
+K2_NS = [100, 120, 150]
+K2_SMALL_NS = [16, 32, 34, 50, 60, 75]
 SWEEP_INDICES = [8, 9, 10, 11, 12]
 PSEUDO_INDICES = [7, 8, 9, 10]
 TRIVIAL_INDEX = 10
@@ -291,9 +304,9 @@ def phase_device() -> float:
     print(f"phase device: {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__},"
           f" cuda {torch.version.cuda}; {sms} SMs at {clock_mhz:.0f} MHz max:"
-          f" IEEE f32 peak {peak / 1e12:.2f} TFLOP/s (CUDA cores, K1); "
+          f" IEEE f32 peak {peak / 1e12:.2f} TFLOP/s (CUDA cores, K1, K2); "
           f"3xTF32 peak {TF32X3_FLOPS / 1e12:.2f} TFLOP/s (dense TF32 495 "
-          f"TFLOP/s at 700 W, data sheet, / 3; K2, K3); memory "
+          f"TFLOP/s at 700 W, data sheet, / 3; K3); memory "
           f"{HBM_BYTES_S / 1e12:.2f} TB/s (data sheet)", flush=True)
     if not peak > 0:
         fail("could not read the SM clock from nvidia-smi")
@@ -356,59 +369,129 @@ def phase_k1(gen, dev, peak: float) -> dict:
             "share": b["bound_ms"] / ms, "library_ms": None}
 
 
-def phase_k2(gen, dev, peak: float) -> dict:
-    from pcx_torch.kernels.axis_dft import axis_dft, axis_dft_plain
-    from pcx_torch.operators.dft import dft3, dft_mats
-    b, n = 48, 120
-    mats = dft_mats(n, torch.complex64, dev)
-    x = torch.randn((b, n, n, n), generator=gen, device=dev,
-                    dtype=torch.complex64)
-    y_k = axis_dft(x, mats.fwd)
-    y_p = axis_dft_plain(x, mats.fwd)
-    y_128 = axis_dft_plain(x.to(torch.complex128),
-                           mats.fwd.to(torch.complex128))
+def _k2_pass(x, inverse: bool, scale_tol: float = K2_TOL) -> tuple:
+    """One K2 pass against its plain version and against complex128:
+    (max|dy|, scale, max|dy_128|, scale_128); fails past ``scale_tol``."""
+    from pcx_torch.kernels.axis_dft import (axis_dft, axis_dft_plain,
+                                            dft_matrix)
+    w = dft_matrix(x.shape[1], inverse, x.device)
+    y_k = axis_dft(x, inverse)
+    y_p = axis_dft_plain(x, w)
     torch.cuda.synchronize()
-    err = max_err(y_k, y_p)
-    scale = float(y_p.abs().max())
-    err_k128 = max_err(y_k.to(torch.complex128), y_128)
-    err_p128 = max_err(y_p.to(torch.complex128), y_128)
-    del y_k, y_p, y_128
-    f_k = dft3(x, mats.fwd)
-    f_ref = torch.fft.fftn(x, dim=(-3, -2, -1))
-    err_f = max_err(f_k, f_ref)
-    scale_f = float(f_ref.abs().max())
-    del f_ref
-    back = dft3(f_k, mats.inv)
-    err_b = max_err(back, x)
-    scale_b = float(x.abs().max())
-    del back, f_k
-    ms = cuda_ms(lambda: axis_dft(x, mats.fwd))
-    plain_ms = cuda_ms(lambda: axis_dft_plain(x, mats.fwd))
-    # one PyTorch call computing the same pass: a cuBLAS GEMM on the
-    # permuted view, (B, J, K, A) @ (A, C) -> (B, J, K, C)
-    lib_ms = cuda_ms(lambda: torch.matmul(x.permute(0, 2, 3, 1), mats.fwd))
-    dft3_ms = cuda_ms(lambda: dft3(x, mats.fwd))
-    fft_ms = cuda_ms(lambda: torch.fft.fftn(x, dim=(-3, -2, -1)))
-    # B N^3 outputs of N complex multiply-adds (8 flop); x, w in, y out
-    rec, text = tensor_core_record(ms, lib_ms, 8.0 * b * n ** 4,
-                                   8.0 * (2 * b * n ** 3 + n * n), peak)
-    print(f"phase k2: B={b} N={n} pass max|dy|/scale={err / scale:.3e} "
-          f"(vs complex128: kernel {err_k128 / scale:.3e}, einsum "
-          f"{err_p128 / scale:.3e}) dft3 fwd vs fftn {err_f / scale_f:.3e} "
-          f"fwd+inv vs x {err_b / scale_b:.3e}; one pass: kernel {ms:.3f} "
-          f"ms einsum {plain_ms:.3f} ms matmul {lib_ms:.3f} ms; {text}; "
-          f"3-D: dft3 (3 kernel passes) {dft3_ms:.3f} ms cuFFT fftn "
-          f"{fft_ms:.3f} ms", flush=True)
-    if not (err <= 5e-6 * scale and err_f <= 5e-6 * scale_f
-            and err_b <= 5e-6 * scale_b):
-        fail("K2 disagrees with its plain version / torch.fft (atol "
-             "5e-6*scale)")
-    return {"name": "axis_dft", "route": "cuda",
-            "source": "pcx_torch/kernels/csrc/axis_dft.cu",
-            "replaces": "pcx/operators/pallas_kernels.py:288",
-            "max_abs_err": err, "max_abs_err_c128": err_k128, "ms": ms,
-            "plain_ms": plain_ms, **rec, "library_ms": lib_ms,
-            "dft3_ms": dft3_ms, "cufft_fftn_ms": fft_ms}
+    err, scale = max_err(y_k, y_p), float(y_p.abs().max())
+    del y_p
+    y_128 = axis_dft_plain(x.to(torch.complex128), w.to(torch.complex128))
+    err_128 = max_err(y_k.to(torch.complex128), y_128)
+    scale_128 = float(y_128.abs().max())
+    del y_k, y_128
+    if not (err <= scale_tol * scale and err_128 <= scale_tol * scale_128):
+        fail(f"K2 N={x.shape[1]} {'inverse' if inverse else 'forward'}: "
+             f"{err / scale:.3e} of scale from its plain version, "
+             f"{err_128 / scale_128:.3e} from complex128 (limit "
+             f"{scale_tol:g})")
+    return err, scale, err_128, scale_128
+
+
+def phase_k2(gen, dev, peak: float) -> dict:
+    """K2 at B=48 and the grids of the paths: each direction against its
+    plain version and complex128, dft3 against fftn and back, the time per
+    pass beside its bytes bound, the plan's operations and the library
+    calls (one-axis torch.fft.fft, torch.matmul on the permuted view).
+    Returns the record of N=120 forward; max_abs_err is the worst over all
+    grids and directions."""
+    from pcx_torch.kernels import _build
+    from pcx_torch.kernels.axis_dft import (axis_dft, axis_dft_plain,
+                                            factor_pair, plan_flops)
+    from pcx_torch.operators.dft import dft3, dft_mats
+    b = K2_B
+    lib = _build.load()
+    worst = worst_128 = 0.0
+    rec = None
+    for n in K2_NS + K2_SMALL_NS:
+        x = torch.randn((b, n, n, n), generator=gen, device=dev,
+                        dtype=torch.complex64)
+        nbytes = 8.0 * 2 * b * n ** 3   # x read once, y written once
+        ops = plan_flops(n) * b * n ** 3
+        bd = bound(ops, nbytes, peak)
+        errs = []
+        for inverse in (False, True):
+            err, scale, err_128, scale_128 = _k2_pass(x, inverse)
+            worst, worst_128 = max(worst, err), max(worst_128, err_128)
+            errs.append(f"{'inv' if inverse else 'fwd'} {err / scale:.3e} "
+                        f"(c128 {err_128 / scale_128:.3e})")
+        ms = cuda_ms(lambda: axis_dft(x))
+        ms_inv = cuda_ms(lambda: axis_dft(x, True))
+        head = (f"phase k2: B={b} N={n} plan {factor_pair(n)} max|dy|/scale"
+                f" {'; '.join(errs)}; kernel fwd {ms:.3f} ms inv "
+                f"{ms_inv:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+                f"({bd['bound_by']}) = {100 * bd['bound_ms'] / ms:.1f}% "
+                f"reached")
+        if n not in K2_NS:
+            print(head, flush=True)
+            continue
+        mats = dft_mats(n, torch.complex64, dev)
+        f_k = dft3(x, mats)
+        f_ref = torch.fft.fftn(x, dim=(-3, -2, -1))
+        err_f, scale_f = max_err(f_k, f_ref), float(f_ref.abs().max())
+        del f_ref
+        back = dft3(f_k, mats, inverse=True)
+        err_b, scale_b = max_err(back, x), float(x.abs().max())
+        del back, f_k
+        plain_ms = cuda_ms(lambda: axis_dft_plain(x, mats.fwd))
+        xp = x.permute(0, 2, 3, 1)
+        # torch.fft.fft along the contracted axis computes K2's function;
+        # a .contiguous() only where its output is not (B, J, K, C)-dense
+        fft_dense = torch.fft.fft(xp, dim=-1).is_contiguous()
+        fft_ms = cuda_ms(lambda: torch.fft.fft(xp, dim=-1) if fft_dense
+                         else torch.fft.fft(xp, dim=-1).contiguous())
+        mm_ms = cuda_ms(lambda: torch.matmul(xp, mats.fwd))
+        dft3_ms = cuda_ms(lambda: dft3(x, mats))
+        fftn_ms = cuda_ms(lambda: torch.fft.fftn(x, dim=(-3, -2, -1)))
+        enc_us = lib.pcx_axis_dft_encode_us(x.data_ptr(), b, n, n, n, 1000)
+        layout = ("already (B, J, K, C)-contiguous" if fft_dense else
+                  "not (B, J, K, C)-contiguous, + .contiguous()")
+        print(f"{head}; plan "
+              f"{ops / 1e9:.3f} GFLOP ({plan_flops(n):.2f} per output), "
+              f"{1e3 * ops / peak:.3f} ms at the f32 peak; einsum "
+              f"{plain_ms:.3f} ms; library: torch.fft.fft on the contracted "
+              f"axis {fft_ms:.3f} ms (output {layout}), torch.matmul "
+              f"{mm_ms:.3f} ms; dft3 fwd vs fftn "
+              f"{err_f / scale_f:.3e}, fwd+inv vs x {err_b / scale_b:.3e}; "
+              f"3-D: dft3 {dft3_ms:.3f} ms, cuFFT fftn {fftn_ms:.3f} ms; "
+              f"tensor-map encode {enc_us:.2f} us per launch", flush=True)
+        if not (err_f <= K2_TOL * scale_f and err_b <= K2_TOL * scale_b):
+            fail(f"K2 N={n}: dft3 forward {err_f / scale_f:.3e} of scale "
+                 f"from fftn, forward+inverse {err_b / scale_b:.3e} from x "
+                 f"(limit {K2_TOL:g})")
+        if n == N:
+            rec = {"name": "axis_dft", "route": "cuda", "arith": FP32_FMA,
+                   "source": "pcx_torch/kernels/csrc/axis_dft.cu",
+                   "replaces": "pcx/operators/pallas_kernels.py:288",
+                   "ms": ms, "ms_inverse": ms_inv,
+                   "plain_ms": plain_ms, **bd,
+                   "share": bd["bound_ms"] / ms, "library_ms": fft_ms,
+                   "library_call": "torch.fft.fft(x.permute(0, 2, 3, 1), "
+                                   "dim=-1)" + ("" if fft_dense
+                                                else ".contiguous()"),
+                   "matmul_ms": mm_ms, "plan": list(factor_pair(n)),
+                   "plan_gflop": ops / 1e9, "dft3_ms": dft3_ms,
+                   "cufft_fftn_ms": fftn_ms, "encode_us": enc_us}
+        del x, xp
+    # the wrapper's host cost per call at a launch-bound size
+    x = torch.randn((2, 16, 16, 16), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    axis_dft(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        axis_dft(x)
+    host_us = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    print(f"phase k2: host us per axis_dft call at (2, 16, 16, 16): "
+          f"{host_us:.1f}", flush=True)
+    rec.update(max_abs_err=worst, max_abs_err_c128=worst_128,
+               host_us=host_us)
+    return rec
 
 
 def phase_k3(gen, dev, peak: float) -> dict:

@@ -22,8 +22,8 @@ K1, whatever the dielectric; with
 forms runs kernel K3 (any dtype).  On CPU tensors the wrappers take their plain PyTorch
 versions.  The refine runs in complex128 with
 torch.fft, as the JAX refine runs its f64 pair operator with XLA products;
-``refine="light"`` validates in the iterate's dtype through the matmul DFT
-(K2), with complex128-accumulated Grams.
+``refine="light"`` validates in the iterate's dtype through the three-pass
+DFT (K2), with complex128-accumulated Grams.
 
 ``KPointSolver`` takes every keyword of the JAX package's constructor:
 ``refine``, ``x0_mode`` (plane-wave, random or two-grid cold starts),
@@ -204,10 +204,11 @@ class KPointSolver:
       the JAX default on the CPU; one solve with no warm cap and no doom
       check, and it refuses the pair-layout options ``LOBPCG_ONLY_OPTS``.
       Davidson and JD run ``solvers.davidson`` under either.
-    * ``fft_mode``: the operator's DFT.  ``"matmul"`` is the three-pass
-      matmul DFT (kernel K2 in complex64), ``"fft"`` torch.fft (cuFFT on
-      the card); as in JAX the pair-layout route always takes the matmul
-      DFT, and ``"auto"`` takes it on the card and torch.fft on the CPU.
+    * ``fft_mode``: the operator's DFT.  ``"matmul"`` (JAX's name) is the
+      three-pass DFT of ``dft3`` (kernel K2, an FFT, in complex64), ``"fft"``
+      torch.fft (cuFFT on the card); as in JAX the pair-layout route always
+      takes the three-pass DFT, and ``"auto"`` takes it on the card and
+      torch.fft on the CPU.
     * ``refine``: ``True``, ``"f64"`` or ``None`` (default) validate every
       solve by the complex128 Rayleigh-Ritz refine (``refine_stats``);
       ``"light"`` by the refine in the iterate's dtype with
@@ -318,7 +319,7 @@ class KPointSolver:
         self.diel = diel if diel is not None else diel_mod.build(
             cfg.diel_type, cfg.n, cfg.lattice, self.device,
             eps_opt=cfg.eps_opt, k=cfg.k)
-        # The matmul DFT of the light refine, and of the solve unless it
+        # The three-pass DFT of the light refine, and of the solve unless it
         # takes torch.fft (pcx/bandstructure.py:327-333).
         self._mats = dft_mats(cfg.n, dtype, self.device)
         use_matmul = (fft_mode == "matmul" or self.impl == "rs"
@@ -596,7 +597,7 @@ class KPointSolver:
     def refine_light_stats(self, alpha, x: torch.Tensor):
         """The light refine (``refine="light"``; pcx ``_refine_light_jit``):
         ``refine_stats`` with the operator applied in the iterate's dtype
-        through the matmul DFT (kernel K2 in complex64), one full-width
+        through the three-pass DFT (kernel K2 in complex64), one full-width
         ``ama_bb`` and one ``ama`` on the leading nev Ritz vectors, the
         projected pencil and the quotients accumulated in complex128
         (``rr.gram_f64``) and solved in complex128.  Returns (theta (m,),

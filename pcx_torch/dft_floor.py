@@ -6,8 +6,9 @@ Runs the solves of ``chip_smoke.py`` phases 7-8 -- sc_curv N=120 at
 alpha=(pi,0,0) cold, and the fcc N=120 chain k_path 9 -> 10 -> 11 (cold,
 warm, warm) -- once per DFT of the complex64 operator apply:
 
-* ``kernel``: three K2 passes (3xTF32 on the tensor cores), the default;
-* ``plain``:  three passes of K2's plain version (a cuBLAS f32 einsum);
+* ``kernel``: three K2 passes (a mixed-radix FFT in IEEE f32), the default;
+* ``plain``:  three passes of K2's plain version (a cuBLAS f32 einsum with
+  the dense DFT matrix);
 * ``cufft``:  ``torch.fft.fftn`` / ``ifftn`` in complex64.
 
 For each solve it prints the status, iterations, ms per iteration and
@@ -37,19 +38,16 @@ def golden_row(lattice: str, n: int, index: int) -> np.ndarray:
         return np.asarray(json.load(f)[f"{lattice}_{n}_frequencies"][index])
 
 
-def use_dft(name: str, forward=()) -> None:
-    """Route the operator's 3-D DFT through ``name``; ``forward`` holds the
-    forward DFT matrices (``KPointSolver.dft.fwd``) that cuFFT's
-    ``fftn`` stands for, every other matrix is the inverse."""
-    from pcx_torch.kernels.axis_dft import axis_dft, axis_dft_plain
+def use_dft(name: str) -> None:
+    """Route the operator's 3-D DFT through ``name``."""
+    from pcx_torch.kernels.axis_dft import axis_dft, axis_dft_plain_dir
     from pcx_torch.operators import dft, maxwell
 
-    def dft3_cufft(x, w):
-        fft = (torch.fft.fftn if any(w is f for f in forward)
-               else torch.fft.ifftn)
+    def dft3_cufft(x, mats, inverse=False):
+        fft = torch.fft.ifftn if inverse else torch.fft.fftn
         return fft(x, dim=(-3, -2, -1))
 
-    dft.axis_dft = axis_dft_plain if name == "plain" else axis_dft
+    dft.axis_dft = axis_dft_plain_dir if name == "plain" else axis_dft
     maxwell.dft3 = dft3_cufft if name == "cufft" else dft.dft3
 
 
@@ -60,7 +58,7 @@ def run(name: str, n: int, dev) -> None:
     solvers = {lat: KPointSolver(ProblemConfig(n=n, lattice=lat, nev=10),
                                  device=dev, dtype=torch.complex64)
                for lat in ("sc_curv", "fcc")}
-    use_dft(name, [kps.dft.fwd for kps in solvers.values()])
+    use_dft(name)
     x_prev = None
     for lattice, index, warm in SOLVES:
         kps = solvers[lattice]

@@ -2,7 +2,8 @@
 of ``pcx/operators/pallas_kernels.py``:
 
 * K1 ``resid_precond`` — replaces ``fused_resid_precond``;
-* K2 ``axis_dft``      — replaces ``axis_dft_pairs``;
+* K2 ``axis_dft``      — replaces ``axis_dft_pairs`` (an FFT on the card,
+  where the TPU contracts with the dense DFT matrix);
 * K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``).
 
 Each wrapper counts its launches in a plain integer attribute

@@ -166,7 +166,7 @@ gram9_partial_kernel(Stack s, Stack hs, float2* __restrict__ partial,
           if (c0 + 8 * q >= rows) break;
           tf32x3::FragB br, bi;
           tf32x3::load_b(hss + 8 * q * kSD + 8 * kk, 1, kSD, br, bi);
-          tf32x3::cmma<true>(acc_re[q], acc_im[q], ar, ai, nai, br, bi);
+          tf32x3::cmma(acc_re[q], acc_im[q], ar, ai, nai, br, bi);
         }
       }
     }

@@ -1,5 +1,4 @@
-// 3xTF32: f32-accurate products on Hopper's tensor cores, shared by K2
-// (axis_dft.cu) and K3 (gram9.cu) so that both hold one copy of the numerics.
+// 3xTF32: f32-accurate products on Hopper's tensor cores, for K3 (gram9.cu).
 //
 // The TPU kernels ran their contractions at Precision.HIGHEST, a multi-pass
 // bf16 emulation of f32 on the MXU.  The Hopper counterpart is the 3xTF32
@@ -80,26 +79,23 @@ __device__ __forceinline__ FragA neg(const FragA& a) {
   return r;
 }
 
-// Complex (re, im) += A * B, or conj(A) * B with kConjA; A = ar + i ai,
-// B = br + i bi, each product three MMAs:
-//   A * B:       re += ar br - ai bi,  im += ar bi + ai br
-//   conj(A) * B: re += ar br + ai bi,  im += ar bi - ai br
+// Complex (re, im) += conj(A) * B; A = ar + i ai, B = br + i bi, each
+// product three MMAs: re += ar br + ai bi,  im += ar bi - ai br.
 // The tensor core's f32 accumulation does not round to nearest (its adds
 // truncate), so over a long chain of MMAs into one accumulator the errors
 // add up with a bias.  Each k8 step's product is therefore formed in fresh
 // registers, six MMAs deep, and added to the running sums (re, im) with IEEE
 // f32 adds, which round to nearest.  nai = neg(ai): the caller negates an
 // A fragment once for all the B fragments it meets.
-template <bool kConjA>
 __device__ __forceinline__ void cmma(float (&re)[4], float (&im)[4],
                                      const FragA& ar, const FragA& ai,
                                      const FragA& nai, const FragB& br,
                                      const FragB& bi) {
   float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
   mma3(tr, ar, br);
-  mma3(tr, kConjA ? ai : nai, bi);
+  mma3(tr, ai, bi);
   mma3(ti, ar, bi);
-  mma3(ti, kConjA ? nai : ai, br);
+  mma3(ti, nai, br);
 #pragma unroll
   for (int i = 0; i < 4; ++i) re[i] += tr[i], im[i] += ti[i];
 }

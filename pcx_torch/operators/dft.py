@@ -1,14 +1,15 @@
-"""3-D DFT as three explicit axis contractions with f32-accurate products.
+"""3-D DFT as three axis passes at f32 accuracy.
 
 Port of ``pcx/operators/dft.py``.  The TPU's builtin FFT lowers to
 reduced-precision passes that raise the LOBPCG residual floor ~100x and breed
 phantom Ritz values; pcx therefore applies the DFT along each grid axis as an
-(N, N) matrix contraction at full precision.  The port keeps that form for
-the complex64 iterate: each pass is kernel K2 (``pcx_torch.kernels.axis_dft``,
-3xTF32 products on the card's tensor cores, the counterpart of the TPU's
-Precision.HIGHEST), which contracts the -3rd axis and writes the transformed
-axis last, so three passes restore the axis order.  complex128 (the CPU parity runs) takes the
-plain einsum; the complex128 refine uses ``torch.fft`` directly.
+(N, N) matrix contraction at full precision.  The port keeps the three axis
+passes for the complex64 iterate, each told its direction: each pass is
+kernel K2 (``pcx_torch.kernels.axis_dft``, a mixed-radix FFT in IEEE f32 on
+the card's CUDA cores), which transforms the -3rd axis and writes it last,
+so three passes restore the axis order.  complex128 (the CPU parity runs)
+takes the plain einsum with the matrices of ``DFTMats``; the complex128
+refine uses ``torch.fft`` directly.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pcx_torch.kernels.axis_dft import axis_dft, axis_dft_plain
+from pcx_torch.kernels.axis_dft import (axis_dft, axis_dft_plain,
+                                       dft_matrix_np)
 
 
 class DFTMats(NamedTuple):
@@ -31,21 +33,26 @@ class DFTMats(NamedTuple):
 
 def dft_mats(n: int, dtype: torch.dtype, device) -> DFTMats:
     """Twiddles built in complex128 and cast to ``dtype`` on ``device``."""
-    j = np.arange(n)
-    w = np.exp(-2j * np.pi * np.outer(j, j) / n)
-    return DFTMats(*(torch.as_tensor(a, device=device).to(dtype)
-                     for a in (w, w.conj() / n)))
+    return DFTMats(*(torch.as_tensor(dft_matrix_np(n, inv),
+                                     device=device).to(dtype)
+                     for inv in (False, True)))
 
 
-def dft3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3-D DFT over the last three axes of x by three axis passes with the
-    (N, N) matrix w.  complex64 goes through K2 (the kernel on CUDA, its
-    plain version on the CPU); complex128 through the plain einsum."""
+def dft3(x: torch.Tensor, mats: DFTMats, inverse: bool = False
+         ) -> torch.Tensor:
+    """3-D DFT over the last three axes of x by three axis passes, forward
+    or inverse.  complex64 goes through K2 told the direction (the kernel on
+    CUDA, its plain version on the CPU); complex128 through the plain einsum
+    with ``mats.fwd`` or ``mats.inv``."""
     lead, n3 = x.shape[:-3], x.shape[-3:]
-    axis_pass = axis_dft if x.dtype == torch.complex64 else axis_dft_plain
     cur = x.reshape((-1,) + n3)
-    for _ in range(3):
-        cur = axis_pass(cur, w)
+    if x.dtype == torch.complex64:
+        for _ in range(3):
+            cur = axis_dft(cur, inverse)
+    else:
+        w = mats.inv if inverse else mats.fwd
+        for _ in range(3):
+            cur = axis_dft_plain(cur, w)
     return cur.reshape(lead + n3)
 
 

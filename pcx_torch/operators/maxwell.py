@@ -40,15 +40,15 @@ def ama(x: torch.Tensor, d_a: torch.Tensor, diel,
         dft: Optional[DFTMats] = None) -> torch.Tensor:
     """A M A^H on a Fourier-space block (..., 3, N, N, N), M = ``diel``
     being any ``dielectric.DielectricOp`` (a real scale, a Hermitian block
-    or the cross-DoF stencil).  With ``dft`` the transforms are the matmul
-    DFT (kernel K2 for complex64); without it, torch.fft (the complex128
-    refine)."""
+    or the cross-DoF stencil).  With ``dft`` the transforms are ``dft3``'s
+    three axis passes (kernel K2 for complex64); without it, torch.fft (the
+    complex128 refine)."""
     y = a_block(x, -d_a.conj())
     if dft is None:
         y = torch.fft.fftn(y, dim=_SPATIAL)
         y = torch.fft.ifftn(diel(y), dim=_SPATIAL)
     else:
-        y = dft3(diel(dft3(y, dft.fwd)), dft.inv)
+        y = dft3(diel(dft3(y, dft)), dft, inverse=True)
     return a_block(y, d_a)
 
 

@@ -58,7 +58,7 @@ def phase_breakdown(solver, alpha, m: Optional[int] = None, repeats: int = 5,
 
     Phases (reference print: FFT / RR / MM / LOCK, lobpcg.py:478-480):
       operator — ``ama_bb`` on the block with the DFT the solver applies
-                 (its matmul DFT, kernel K2 in complex64 on the card; the
+                 (its three-pass DFT, kernel K2 in complex64 on the card; the
                  JAX ``phase_breakdown`` times ``jnp.fft`` here, which its
                  own solver does not run),
       precond  — the zero-FFT block preconditioner ``h_block`` (the

@@ -25,11 +25,11 @@ from pcx_torch import bandstructure as bs
 from pcx_torch.bandstructure import KPointSolver
 from pcx_torch.config import ProblemConfig
 from pcx_torch.kernels import axis_dft, gram9, resid_precond
-from pcx_torch.kernels.axis_dft import axis_dft_plain
+from pcx_torch.kernels.axis_dft import axis_dft_plain, dft_matrix
 from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.operators import dielectric
-from pcx_torch.operators.dft import dft_mats, resample3, upsample_mat
+from pcx_torch.operators.dft import dft3, dft_mats, resample3, upsample_mat
 from pcx_torch.solvers import rayleigh_ritz as rr
 
 pytestmark = pytest.mark.gpu
@@ -63,50 +63,86 @@ def test_k1_cuda_matches_plain():
     torch.testing.assert_close(ss, ss_p, rtol=1e-5, atol=0.0)
 
 
-@pytest.mark.parametrize("n", [100, 120, 150])
-def test_k2_cuda_matches_plain(n):
+# N=75 has an odd K: the kernel loads with cp.async there (TMA needs 16-byte
+# row strides); B=5 is not a multiple of 3 (the solver's 3 m).
+K2_NS = [16, 50, 75, 100, 120, 150]
+
+
+def _k2_input(n, seed, b=5, shape=None):
     dev = _cuda()
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    x = torch.randn((6, n, n, n), generator=gen, device=dev,
-                    dtype=torch.complex64)
-    w = dft_mats(n, torch.complex64, dev).fwd
+    gen.manual_seed(seed)
+    return torch.randn(shape or (b, n, n, n), generator=gen, device=dev,
+                       dtype=torch.complex64)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", K2_NS)
+def test_k2_cuda_matches_plain(n, inverse):
+    x = _k2_input(n, 1)
     n0 = axis_dft.launches
-    y = axis_dft(x, w)
-    y_p = axis_dft_plain(x, w)
+    y = axis_dft(x, inverse)
+    y_p = axis_dft_plain(x, dft_matrix(n, inverse, x.device))
     torch.cuda.synchronize()
     assert axis_dft.launches == n0 + 1
-    # 3xTF32 tensor-core products vs the einsum's f32 GEMM: 5e-6 of the
-    # output scale (single-pass TF32 would show ~1e-3)
+    # the FFT's f32 rounding vs the einsum's f32 GEMM: 5e-6 of the output
+    # scale (single-pass TF32 would show ~1e-3)
     torch.testing.assert_close(y, y_p, rtol=0.0,
                                atol=5e-6 * float(y_p.abs().max()))
 
 
-@pytest.mark.parametrize("n", [100, 120, 150])
-def test_k2_cuda_error_vs_complex128(n):
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", K2_NS)
+def test_k2_cuda_error_vs_complex128(n, inverse):
     """The kernel's and the einsum's errors against complex128, side by
     side: both within 5e-6 of the output scale."""
-    dev = _cuda()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    x = torch.randn((6, n, n, n), generator=gen, device=dev,
-                    dtype=torch.complex64)
-    w = dft_mats(n, torch.complex64, dev).fwd
+    x = _k2_input(n, 3)
+    w = dft_matrix(n, inverse, x.device)
     want = axis_dft_plain(x.to(torch.complex128), w.to(torch.complex128))
     scale = float(want.abs().max())
-    err_k = float((axis_dft(x, w).to(torch.complex128) - want).abs().max())
+    err_k = float((axis_dft(x, inverse).to(torch.complex128)
+                   - want).abs().max())
     err_p = float((axis_dft_plain(x, w).to(torch.complex128)
                    - want).abs().max())
     assert err_p <= 5e-6 * scale
     assert err_k <= 5e-6 * scale
 
 
+@pytest.mark.parametrize("shape", [(2, 16, 5, 16),    # tiles of 2 j rows
+                                   (3, 60, 9, 40),    # k tiles 32 + 8
+                                   (2, 34, 4, 10),    # the dense stage
+                                   (1, 7, 3, 3),      # odd K: cp.async
+                                   (2, 50, 6, 25),    # odd K: cp.async
+                                   (4, 120, 3, 50)])  # J, K != A
+def test_k2_cuda_tiles_and_load_paths(shape):
+    """Ragged tiles and both load paths (TMA, and cp.async where K * 8
+    bytes is no multiple of 16) against the plain version, both
+    directions."""
+    x = _k2_input(0, 5, shape=shape)
+    for inverse in (False, True):
+        y = axis_dft(x, inverse)
+        y_p = axis_dft_plain(x, dft_matrix(shape[1], inverse, x.device))
+        torch.testing.assert_close(y, y_p, rtol=0.0,
+                                   atol=5e-6 * float(y_p.abs().max()))
+
+
+@pytest.mark.parametrize("n", [75, 120])
+def test_k2_cuda_dft3_matches_fftn_and_returns_x(n):
+    x = _k2_input(n, 7, b=3)
+    mats = dft_mats(n, torch.complex64, x.device)
+    f = dft3(x, mats)
+    ref = torch.fft.fftn(x, dim=(-3, -2, -1))
+    torch.testing.assert_close(f, ref, rtol=0.0,
+                               atol=5e-6 * float(ref.abs().max()))
+    torch.testing.assert_close(dft3(f, mats, inverse=True), x, rtol=0.0,
+                               atol=5e-6 * float(x.abs().max()))
+
+
 def test_kernels_reject_non_contiguous_cuda_input():
     dev = _cuda()
     x = torch.zeros((2, 8, 8, 8), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
-        axis_dft(x.transpose(1, 2), torch.eye(8, dtype=torch.complex64,
-                                             device=dev))
+        axis_dft(x.transpose(1, 2))
 
 
 def test_complex64_solve_on_cuda_matches_cpu():
