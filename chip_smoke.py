@@ -139,6 +139,36 @@ failure ends the run with a non-zero exit:
              solve from the same start block, with iterations, seconds and
              each rank's peak memory; (d) the native mask engine at N=120
              for sc_curv and fcc, bit-identical to numpy, both timed.
+19. library — the library-recovery tools (``pcx_torch.f64_truth``,
+             ``record_vs_truth``, ``rescue_point``, ``preflight_queue``,
+             ``iter_tail``) and the gyroid lattices at N=120, everything
+             written under a temporary directory ($PCX_GEOMETRY_CACHE
+             too): (a) ``f64_truth`` at bcc_sg k_path 100, complex128 on
+             the card, CONVERGED or FLOOR, within 1e-6 of
+             data/bcc_sg_n120_k100_f64.json on all ten bands, in its keys,
+             with iterations, ms/iteration and peak memory; (b)
+             ``record_vs_truth`` there into a copy of
+             output_c64/chiral/bandgap_bcc_sg.json, whose row 100 is
+             failed: recorded within 1e-3 of the pin, no failed row left,
+             the other 159 rows exactly as committed; (c) ``rescue_point``
+             with the rungs refine64, coarse and f64 on a second copy, and
+             with the f64 rung alone on a third (the ladder stops at the
+             first rung that recovers the row): row 100 recovered within
+             1e-3 of the pin, with the rung that did it, each rung's
+             seconds and peak memory; (d) bcc_sg rows
+             36-38 and bcc_dg rows 18-20 (19 is exact Gamma) of copies of
+             the committed libraries reset and swept with the runner's
+             settings (rr_gram="pallas", refine="light"), gated like phase
+             14, bcc_sg 37 and bcc_dg 19 within 1e-5 of their f64 pins,
+             K1, K2 and K3 launched; (e) the pseudochiral gyroid rows
+             (bcc_sg 37, bcc_dg 40; trivial and cross-DoF, no committed
+             library) through ``bandgap`` with the runner's settings, each
+             accepted, with the light refine's frequencies against the
+             complex128 refine's on a twin solve; (f) ``preflight_queue``'s
+             14 configurations at N=16, 2 points, complex128, every solve
+             OK (the golden column printed, not gated); (g) ``iter_tail``
+             at N=48, sc_curv chiral: every status CONVERGED or FLOOR and
+             every val <= 1e-3.  Nothing is cut.
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
@@ -146,13 +176,15 @@ route), reset again just before phase 9 and read after it (K1, K2 and
 K3 must all have launched), and once more before phase 11: read after its
 sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
 solve of phase 13, around phase 14, around each solve of phase 16,
-around phase 17 (K1 and K2 must launch) and, on rank 0, around phase 18's
-``bandgap(mesh=)`` (K1, K2 and K3 must launch).
+around phase 17 (K1 and K2 must launch), on rank 0 around phase 18's
+``bandgap(mesh=)`` (K1, K2 and K3 must launch) and around phase 19 (K1,
+K2 and K3 must launch, in its sweeps (d) too).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
 two-grid start's of phase 16; ``launches_experiments``: phase 17's;
-``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``), the
+``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``;
+``launches_library``: phase 19's), the
 kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -1012,12 +1044,17 @@ def phase_solvers_full(dev, n: int = N, golden: bool = True) -> dict:
     return total
 
 
-def reset_rows(src: str, dst: str, key: str, rows) -> dict:
+def reset_rows(src: str, dst: str, key: str, rows,
+               src_key: str = None) -> dict:
     """Copy the band library ``src`` to ``dst`` with ``rows`` of the record
     ``key`` reset to pending ([0, 0], zero frequencies); returns the
-    original library."""
+    original library.  ``src_key`` (a CPU rehearsal at a small N) renames
+    the source's record ``src_key`` to ``key`` first."""
     with open(src) as f:
         lib = json.load(f)
+    if src_key and src_key != key:
+        lib = {f"{key}_{part}": lib[f"{src_key}_{part}"]
+               for part in ("iterations", "frequencies")}
     out = json.loads(json.dumps(lib))
     for i in rows:
         out[f"{key}_iterations"][i] = [0, 0]
@@ -1028,14 +1065,66 @@ def reset_rows(src: str, dst: str, key: str, rows) -> dict:
     return lib
 
 
+def gate_resumed_rows(path: str, metrics: str, text: str, key: str,
+                      ref: dict, alphas, rows, tag: str,
+                      golden: bool) -> list:
+    """Print and gate the ``rows`` that a ``bandgap`` resume recorded into
+    the library at ``path`` (its metrics file ``metrics``, its log
+    ``text``): every row computed, CONVERGED or FLOOR, read back as solved,
+    inside the 1e-3 spurious gate and (``golden``) within 3.5e-3 of the
+    committed row of ``ref``; how it was accepted.  Returns the
+    problems."""
+    from pcx_torch.metrics import load_jsonl
+    from pcx_torch.solvers.lobpcg import Status
+    recs = load_jsonl(metrics) if os.path.exists(metrics) else []
+    with open(path) as f:
+        lib = json.load(f)
+    problems = []
+    for i in rows:
+        tag_i = f"{tag} k={i}"
+        rec = next((r for r in recs if np.allclose(r["alpha"], alphas[i])),
+                   None)
+        if rec is None or lib[f"{key}_iterations"][i][0] <= 0:
+            print(f"  {tag_i}: not computed {lib[f'{key}_iterations'][i]}",
+                  flush=True)
+            problems.append(f"{tag_i}: not computed")
+            continue
+        row = np.array(lib[f"{key}_frequencies"][i])
+        spur = float(np.abs(np.array(rec["omega_pnt"])
+                            - np.array(rec["omega"])).max())
+        gold = (float(np.abs(row - np.array(
+            ref[f"{key}_frequencies"][i])).max())
+            if golden else float("nan"))
+        how = ("escalated to the complex128 refine"
+               if f"k={i}: f64 re-validation PASSED" in text
+               else "light refine accepted")
+        if f"Warm-started k={i} failed" in text:
+            how += "; warm solve rejected, cold retry"
+        status = Status(rec["status"]).name
+        print(f"  {tag_i}: status {status} iters {rec['iterations']} "
+              f"wall {rec['wall_s']:.3f} s "
+              f"({1e3 * rec['wall_s'] / max(rec['iterations'], 1):.1f}"
+              f" ms/iter) max|omega-omega_re| {spur:.3e} "
+              f"max|omega - committed| {gold:.3e}; {how}",
+              flush=True)
+        if rec["status"] not in (Status.CONVERGED, Status.FLOOR):
+            problems.append(f"{tag_i}: status {status}")
+        if not np.array_equal(row, np.array(rec["omega"])):
+            problems.append(f"{tag_i}: the library read back differs "
+                            f"from the solve's frequencies")
+        if not spur <= SPURIOUS_TOL:
+            problems.append(f"{tag_i}: spurious ({spur:.3e})")
+        if golden and not gold <= GOLDEN_TOL:
+            problems.append(f"{tag_i}: {gold:.3e} from the committed row")
+    return problems
+
+
 def phase_near_gamma(dev, n: int = N, golden: bool = True) -> None:
     """Phase 14 (F2): resume sc_curv rows NEAR_GAMMA_ROWS of each
     dielectric's committed library with the runner's settings and gate
     every row; all rows are printed before a failure ends the phase."""
     from pcx_torch.bandstructure import bandgap
     from pcx_torch.lattices import k_path
-    from pcx_torch.metrics import load_jsonl
-    from pcx_torch.solvers.lobpcg import Status
     key = f"sc_curv_{n}"
     alphas = k_path("sc_curv")
     problems = []
@@ -1062,48 +1151,11 @@ def phase_near_gamma(dev, n: int = N, golden: bool = True) -> None:
             text = log.getvalue()
             for line in text.splitlines():
                 print(f"    {line}", flush=True)
-            recs = load_jsonl(metrics) if os.path.exists(metrics) else []
-            with open(path) as f:
-                lib = json.load(f)
             if err:
                 problems.append(f"{diel_type}: failed indices {err}")
-            for i in NEAR_GAMMA_ROWS:
-                tag = f"{diel_type} k={i}"
-                rec = next((r for r in recs
-                            if np.allclose(r["alpha"], alphas[i])), None)
-                if rec is None or lib[f"{key}_iterations"][i][0] <= 0:
-                    print(f"  {tag}: not computed "
-                          f"{lib[f'{key}_iterations'][i]}", flush=True)
-                    problems.append(f"{tag}: not computed")
-                    continue
-                row = np.array(lib[f"{key}_frequencies"][i])
-                spur = float(np.abs(np.array(rec["omega_pnt"])
-                                    - np.array(rec["omega"])).max())
-                gold = (float(np.abs(row - np.array(
-                    ref[f"{key}_frequencies"][i])).max())
-                    if golden else float("nan"))
-                how = ("escalated to the complex128 refine"
-                       if f"k={i}: f64 re-validation PASSED" in text
-                       else "light refine accepted")
-                if f"Warm-started k={i} failed" in text:
-                    how += "; warm solve rejected, cold retry"
-                status = Status(rec["status"]).name
-                print(f"  {tag}: status {status} iters {rec['iterations']} "
-                      f"wall {rec['wall_s']:.3f} s "
-                      f"({1e3 * rec['wall_s'] / max(rec['iterations'], 1):.1f}"
-                      f" ms/iter) max|omega-omega_re| {spur:.3e} "
-                      f"max|omega - committed| {gold:.3e}; {how}",
-                      flush=True)
-                if rec["status"] not in (Status.CONVERGED, Status.FLOOR):
-                    problems.append(f"{tag}: status {status}")
-                if not np.array_equal(row, np.array(rec["omega"])):
-                    problems.append(f"{tag}: the library read back differs "
-                                    f"from the solve's frequencies")
-                if not spur <= SPURIOUS_TOL:
-                    problems.append(f"{tag}: spurious ({spur:.3e})")
-                if golden and not gold <= GOLDEN_TOL:
-                    problems.append(f"{tag}: {gold:.3e} from the committed "
-                                    f"row")
+            problems += gate_resumed_rows(path, metrics, text, key, ref,
+                                          alphas, NEAR_GAMMA_ROWS, diel_type,
+                                          golden)
             print(f"  {diel_type}: {len(NEAR_GAMMA_ROWS)} rows in "
                   f"{wall:.3f} s", flush=True)
     if problems:
@@ -1673,6 +1725,329 @@ def phase_parallel(dev, n: int = N, golden: bool = True) -> dict:
     return results[0][1]
 
 
+# Phase 19: the library-recovery tools at full width on the gyroids.  (a)-(c)
+# take bcc_sg row LIB_K, failed in the committed library, which has an f64
+# pin; (d) resumes chiral rows with the runner's settings, two of them
+# pinned; (e) solves pseudochiral gyroid rows, which have no library yet;
+# (f) and (g) run the pre-flight and the lever matrix at their defaults.
+LIB_K = 100
+LIB_PIN = "bcc_sg_n120_k100_f64.json"
+PIN_TOL = 1e-6           # (a): the complex128 solve against the pin
+RECORD_GATE = 1e-3       # (b), (c): record_vs_truth's gate
+GYROID_ROWS = (("bcc_sg", [36, 37, 38]), ("bcc_dg", [18, 19, 20]))
+GYROID_PINS = {("bcc_sg", 37): "bcc_sg_k37_f64.json",
+               ("bcc_dg", 19): "bcc_dg_n120_k19_f64.json"}
+GYROID_PIN_TOL = 1e-5    # tests/test_bandstructure.py:597-628
+PSEUDO_GYROIDS = (("bcc_sg", 37), ("bcc_dg", 40))
+PREFLIGHT_N, PREFLIGHT_POINTS = 16, 2
+ITER_TAIL_N = 48
+RUNNER_SETTINGS = {"solver_opts": {"rr_gram": "pallas"},
+                   "solver_kw": {"refine": "light"}}
+
+
+@contextlib.contextmanager
+def geometry_cache(path: str):
+    """Point $PCX_GEOMETRY_CACHE, and the module's cache directory read
+    from it at import, at ``path`` for the block."""
+    from pcx_torch import geometry
+    env, cache = os.environ.get("PCX_GEOMETRY_CACHE"), geometry.CACHE_DIR
+    os.environ["PCX_GEOMETRY_CACHE"] = geometry.CACHE_DIR = path
+    try:
+        yield
+    finally:
+        geometry.CACHE_DIR = cache
+        if env is None:
+            del os.environ["PCX_GEOMETRY_CACHE"]
+        else:
+            os.environ["PCX_GEOMETRY_CACHE"] = env
+
+
+def captured(fn, *args, **kw):
+    """(fn(...), its standard output), the output echoed indented."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out = fn(*args, **kw)
+    for line in log.getvalue().splitlines():
+        print(f"    {line}", flush=True)
+    return out, log.getvalue()
+
+
+def library_copy(lattice: str, n: int, dst_dir: str, rows=()) -> tuple:
+    """(path, committed library) of a copy of
+    output_c64/chiral/bandgap_<lattice>.json under ``dst_dir`` with
+    ``rows`` reset to pending (the N=120 record renamed to N=n below
+    N)."""
+    path = os.path.join(dst_dir, "chiral", f"bandgap_{lattice}.json")
+    ref = reset_rows(os.path.join(HERE, "output_c64", "chiral",
+                                  f"bandgap_{lattice}.json"), path,
+                     f"{lattice}_{n}", rows, src_key=f"{lattice}_{N}")
+    return path, ref
+
+
+def pin(name: str, lattice: str, n: int) -> np.ndarray:
+    from pcx_torch.record_vs_truth import load_truth
+    return np.asarray(load_truth(os.path.join(HERE, "data", name), lattice,
+                                 n)["omega_f64"], float)
+
+
+def _lib_truth(dev, n: int, golden: bool, out: str) -> tuple:
+    """(a): f64_truth at bcc_sg row LIB_K; returns (its pin's path, the
+    frequencies (b) and (c) are held to)."""
+    from pcx_torch import f64_truth as ft
+    from pcx_torch.solvers.lobpcg import Status
+    truth = ft.f64_truth("bcc_sg", n, LIB_K, device=dev)
+    rec, res = truth.record, truth.result
+    path = os.path.join(out, f"bcc_sg_n{n}_k{LIB_K}_f64.json")
+    ft.write_pin(rec, path)
+    omega = np.asarray(res.omega_re, float)
+    want = pin(LIB_PIN, "bcc_sg", n) if golden else omega
+    dev_pin = float(np.abs(omega - want).max())
+    with open(os.path.join(HERE, "data", LIB_PIN)) as f:
+        keys = list(json.load(f))
+    print(f"  (a) f64_truth bcc_sg N={n} k={LIB_K} complex128: status "
+          f"{Status(res.status).name} iters {res.iterations} (JAX on the "
+          f"CPU: 198) wall {res.wall_time:.3f} s "
+          f"({1e3 * res.wall_time / max(res.iterations, 1):.1f} ms/iter), "
+          f"peak device memory {truth.peak_gib:.2f} GiB; max|omega - pin| "
+          f"{dev_pin:.3e}; keys as the committed pin's "
+          f"{list(rec) == keys}", flush=True)
+    print(f"    omega {np.array2string(omega, precision=8)}", flush=True)
+    if res.status not in (Status.CONVERGED, Status.FLOOR):
+        fail(f"library (a): status {Status(res.status).name}")
+    if not dev_pin <= PIN_TOL:
+        fail(f"library (a): {dev_pin:.3e} from {LIB_PIN}")
+    if list(rec) != keys:
+        fail(f"library (a): record keys {list(rec)} != {keys}")
+    return (os.path.join(HERE, "data", LIB_PIN) if golden else path), want
+
+
+def _lib_record(dev, n: int, out: str, pin_path: str, want) -> None:
+    """(b): record_vs_truth at bcc_sg row LIB_K into a copy of the library;
+    the other rows stay exactly as committed."""
+    from pcx_torch.record_vs_truth import record_vs_truth
+    key = f"bcc_sg_{n}"
+    lib_dir = os.path.join(out, "record")
+    path, ref = library_copy("bcc_sg", n, lib_dir)
+    t0 = time.time()
+    r, _ = captured(record_vs_truth, "bcc_sg", LIB_K, n=n, truth=pin_path,
+                    output=lib_dir, device=dev)
+    with open(path) as f:
+        lib = json.load(f)
+    row = np.array(lib[f"{key}_frequencies"][LIB_K])
+    print(f"  (b) record_vs_truth bcc_sg N={n} k={LIB_K}: recorded "
+          f"{r.recorded}, deviation from the pin {r.deviation:.3e} (gate "
+          f"{RECORD_GATE}), tries {r.tries}, {time.time() - t0:.3f} s",
+          flush=True)
+    if not (r.recorded and r.deviation <= RECORD_GATE):
+        fail(f"library (b): not recorded, deviation {r.deviation:.3e}")
+    if lib[f"{key}_iterations"][LIB_K][0] <= 0 or \
+            float(np.abs(row - want).max()) > RECORD_GATE:
+        fail(f"library (b): row {LIB_K} reads {row}")
+    failed = [i for i, it in enumerate(lib[f"{key}_iterations"])
+              if it[0] == -1]
+    changed = [i for i in range(len(lib[f"{key}_iterations"]))
+               if i != LIB_K and any(lib[f"{key}_{p}"][i] != ref[f"{key}_{p}"][i]
+                                     for p in ("iterations", "frequencies"))]
+    print(f"  (b) failed rows after {failed}; other rows changed {changed}",
+          flush=True)
+    if failed or changed:
+        fail(f"library (b): failed rows {failed}, changed rows {changed}")
+
+
+def _lib_rescue(dev, n: int, out: str, want) -> None:
+    """(c): rescue_point on a copy for row LIB_K, with the whole ladder and
+    then with its top rung alone (complex128 at full width: the ladder
+    stops at the first rung that recovers the row)."""
+    from pcx_torch.rescue_point import STEPS, rescue
+    for steps in (STEPS, ("f64",)):
+        lib_dir = os.path.join(out, "rescue_" + "_".join(steps))
+        path, _ = library_copy("bcc_sg", n, lib_dir)
+        r, _ = captured(rescue, n=n, lattice="bcc_sg", output=lib_dir,
+                        steps=steps, device=dev)
+        for rung in r.rungs:
+            print(f"  (c) rung {rung.step}: rows {rung.todo}, left failed "
+                  f"{rung.failed}, {rung.seconds:.3f} s, peak device memory "
+                  f"{rung.peak_gib:.2f} GiB", flush=True)
+        with open(path) as f:
+            lib = json.load(f)
+        it, sec = lib[f"bcc_sg_{n}_iterations"][LIB_K]
+        row = np.array(lib[f"bcc_sg_{n}_frequencies"][LIB_K])
+        dev_pin = float(np.abs(row - want).max()) if it > 0 else float("nan")
+        by = r.rungs[-1].step if r.ok and r.rungs else None
+        print(f"  (c) rescue_point --steps {' '.join(steps)} bcc_sg N={n} "
+              f"k={LIB_K}: recovered by {by}, iters {it:.0f} wall "
+              f"{sec:.3f} s, max|omega - pin| {dev_pin:.3e}", flush=True)
+        if not r.ok or not dev_pin <= RECORD_GATE:
+            fail(f"library (c) {steps}: row {LIB_K} not recovered within "
+                 f"{RECORD_GATE} of the pin ({dev_pin:.3e}; left {r.left})")
+
+
+def _lib_gyroids(dev, n: int, golden: bool, out: str) -> dict:
+    """(d): the chiral gyroid rows GYROID_ROWS resumed with the runner's
+    settings, each gated against its committed row and, where pinned,
+    against the pin; returns the kernel launches."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import bandgap
+    from pcx_torch.lattices import k_path
+    before = kmod.launches()
+    problems = []
+    for lattice, rows in GYROID_ROWS:
+        key = f"{lattice}_{n}"
+        path, ref = library_copy(lattice, n, os.path.join(out, "gyroid"),
+                                 rows)
+        metrics = os.path.join(out, f"gyroid_{lattice}.jsonl")
+        print(f"  (d) bandgap {lattice} chiral N={n} complex64 "
+              f"rr_gram='pallas' refine='light', resuming rows {rows} "
+              f"(committed iterations "
+              f"{[ref[f'{key}_iterations'][i][0] for i in rows]})",
+              flush=True)
+        t0 = time.time()
+        # the rows by name: a resume would also retry the failed row LIB_K
+        err, text = captured(bandgap, n=n, lattice=lattice, nev=NEV,
+                             dtype=torch.complex64, device=dev,
+                             output_dir=os.path.join(out, "gyroid"),
+                             metrics_path=metrics, indices=rows,
+                             verbose=True, **RUNNER_SETTINGS)
+        print(f"  (d) {lattice}: {len(rows)} rows in {time.time() - t0:.3f}"
+              f" s", flush=True)
+        if err:
+            problems.append(f"{lattice}: failed indices {err}")
+        problems += gate_resumed_rows(path, metrics, text, key, ref,
+                                      k_path(lattice), rows, lattice, golden)
+        with open(path) as f:
+            lib = json.load(f)
+        for i in rows:
+            name = GYROID_PINS.get((lattice, i))
+            if name and golden:
+                d = float(np.abs(np.array(lib[f"{key}_frequencies"][i])
+                                 - pin(name, lattice, n)).max())
+                print(f"  (d) {lattice} k={i}: max|omega - f64 pin| "
+                      f"{d:.3e} ({name})", flush=True)
+                if not d <= GYROID_PIN_TOL:
+                    problems.append(f"{lattice} k={i}: {d:.3e} from {name}")
+    after = kmod.launches()
+    counts = {k: after[k] - before[k] for k in after}
+    print(f"  (d) launches {counts}", flush=True)
+    if dev.type == "cuda" and not all(counts.values()):
+        problems.append(f"a kernel never launched: {counts}")
+    if problems:
+        fail(f"library (d): {'; '.join(problems)}")
+    return counts
+
+
+def _lib_pseudo(dev, n: int, out: str) -> None:
+    """(e): the pseudochiral gyroid rows through bandgap with the runner's
+    settings, each accepted by the sweep's gate; a twin solve of the row
+    (the sweep's seed, the same settings) gives the light refine's
+    frequencies against the complex128 refine's."""
+    from pcx_torch.bandstructure import KPointSolver, bandgap
+    from pcx_torch.config import ProblemConfig
+    from pcx_torch.lattices import k_path
+    problems = []
+    for lattice, i in PSEUDO_GYROIDS:
+        alpha = k_path(lattice)[i]
+        for diel_type in (TRIVIAL, CROSSDOF):
+            tag = f"{lattice} {diel_type} k={i}"
+            path = os.path.join(out, "pseudo", diel_type,
+                                f"bandgap_{lattice}.json")
+            t0 = time.time()
+            err, _ = captured(bandgap, n=n, lattice=lattice,
+                              diel_type=diel_type, nev=NEV,
+                              dtype=torch.complex64, device=dev,
+                              output_dir=os.path.join(out, "pseudo"),
+                              indices=[i], verbose=True, **RUNNER_SETTINGS)
+            wall = time.time() - t0
+            with open(path) as f:
+                lib = json.load(f)
+            it, sec = lib[f"{lattice}_{n}_iterations"][i]
+            row = np.array(lib[f"{lattice}_{n}_frequencies"][i])
+            kps = KPointSolver(ProblemConfig(n=n, lattice=lattice,
+                                             diel_type=diel_type, nev=NEV),
+                               device=dev, dtype=torch.complex64,
+                               refine="light",
+                               solver_opts=RUNNER_SETTINGS["solver_opts"])
+            res = kps.solve(alpha, seed=i, raise_on_spurious=False)
+            rep_f64 = kps._refine_report(alpha, res.x, mode="f64",
+                                         raise_on_spurious=False)[0]
+            d_ref = float(np.abs(res.report.omega_re
+                                 - rep_f64.omega_re).max())
+            d_twin = float(np.abs(res.report.omega_re - row).max())
+            print(f"  (e) {tag}: iters {it:.0f} wall {sec:.3f} s (bandgap "
+                  f"{wall:.3f} s); light against complex128 refine "
+                  f"{d_ref:.3e}; twin solve iters {res.iterations}, "
+                  f"{d_twin:.3e} from the row", flush=True)
+            print(f"    omega {np.array2string(row, precision=6)}",
+                  flush=True)
+            if err or it <= 0:
+                problems.append(f"{tag}: not accepted ({err})")
+            del kps, res
+    if problems:
+        fail(f"library (e): {'; '.join(problems)}")
+
+
+def _lib_preflight(dev, n: int, configs) -> None:
+    """(f): preflight_queue's configurations at N=n, 2 points each."""
+    from pcx_torch.preflight_queue import preflight
+    t0 = time.time()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        results = preflight(configs, n=n, points=PREFLIGHT_POINTS,
+                            device=dev)
+    for line in log.getvalue().splitlines():
+        if line.startswith(("OK", "FAIL")):
+            print(f"    {line}", flush=True)
+    bad = [f"{r.lattice} {r.diel} eps{r.eps_opt}: {r.bad}"
+           for r in results if not r.ok]
+    print(f"  (f) preflight_queue N={n} {PREFLIGHT_POINTS} points, "
+          f"{len(results)} configurations, complex128: "
+          f"{len(results) - len(bad)} OK in {time.time() - t0:.3f} s "
+          f"(golden column printed, not gated)", flush=True)
+    if bad:
+        fail(f"library (f): {'; '.join(bad)}")
+
+
+def _lib_iter_tail(dev, n: int) -> None:
+    """(g): iter_tail's lever matrix at sc_curv chiral N=n."""
+    from pcx_torch.iter_tail import iter_tail
+    from pcx_torch.solvers.lobpcg import Status
+    t0 = time.time()
+    recs, _ = captured(iter_tail, n=n, device=dev)
+    print(f"  (g) iter_tail sc_curv chiral N={n}: {len(recs)} variants in "
+          f"{time.time() - t0:.3f} s", flush=True)
+    bad = [r["variant"] for r in recs
+           if any(s not in (Status.CONVERGED, Status.FLOOR)
+                  for s in r["status"])
+           or any(v is None or v > SPURIOUS_TOL for v in r["val"])]
+    if bad:
+        fail(f"library (g): variants {bad} not CONVERGED/FLOOR within "
+             f"{SPURIOUS_TOL}")
+
+
+def phase_library(dev, n: int = N, golden: bool = True,
+                  preflight_n: int = PREFLIGHT_N, preflight_configs=None,
+                  iter_tail_n: int = ITER_TAIL_N) -> dict:
+    """Phase 19: the library-recovery tools and the gyroid lattices, (a) to
+    (g), everything written under a temporary directory, the geometry cache
+    too.  ``golden`` holds (a)-(d) to the committed pins and rows (False: a
+    CPU rehearsal at a small N, against (a)'s own pin).  Returns the kernel
+    launches of (d)."""
+    from pcx_torch.preflight_queue import CONFIGS
+    print(f"phase library: N={n}, bcc_sg row {LIB_K} and the gyroid sweeps",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="pcx_library_") as out:
+        with geometry_cache(os.path.join(out, "geometry_cache")):
+            t0 = time.time()
+            pin_path, want = _lib_truth(dev, n, golden, out)
+            _lib_record(dev, n, out, pin_path, want)
+            _lib_rescue(dev, n, out, want)
+            counts = _lib_gyroids(dev, n, golden, out)
+            _lib_pseudo(dev, n, out)
+            _lib_preflight(dev, preflight_n, preflight_configs or CONFIGS)
+            _lib_iter_tail(dev, iter_tail_n)
+            print(f"  phase library: {time.time() - t0:.3f} s", flush=True)
+    return counts
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -1778,6 +2153,18 @@ def main() -> None:
         rec["launches_parallel"] = counts[rec["name"]]
     if not all(rec["launches_parallel"] > 0 for rec in kernels):
         fail(f"a kernel never launched in bandgap(mesh=): {counts}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kmod.reset_launches()
+    gyroid = phase_library(dev)
+    counts = kmod.launches()
+    print(f"phase launches: {counts} in phase 19 ({gyroid} in its chiral "
+          f"gyroid sweeps); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    for rec in kernels:
+        rec["launches_library"] = counts[rec["name"]]
+    if not all(rec["launches_library"] > 0 for rec in kernels):
+        fail(f"a kernel never launched in phase 19: {counts}")
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,20 @@ def _setup_device(args):
     return device, torch.complex128
 
 
+def tool_device(cpu: bool, prog: str):
+    """The device of a library tool (``python -m pcx_torch.f64_truth`` and
+    the other four): the CPU with ``--cpu``, else the card; exits non-zero
+    naming the missing card when there is none, so that nothing falls back
+    to the CPU."""
+    import torch
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        sys.exit(f"{prog}: no CUDA device (torch.cuda.is_available() is "
+                 f"False); pass --cpu to run on the CPU")
+    return torch.device("cuda")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pcx_torch", description=__doc__,
                                  formatter_class=argparse.

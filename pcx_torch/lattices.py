@@ -6,6 +6,8 @@ Reference: paper_2/environment.py:72-82 (DIEL_LIB), paper_2/dielectric.py:20-49
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from pcx_torch.config import GAP
@@ -52,6 +54,21 @@ def ct_matrix(lattice: str) -> np.ndarray:
 def sym_points(lattice: str) -> np.ndarray:
     """Symmetry points of the BZ path (reference: dielectric.py:20-35)."""
     return _SYM[family(lattice)].copy()
+
+
+def lattice_info(lattice: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(CT, symmetry points) pair (reference: dielectric.py:20-35)."""
+    return ct_matrix(lattice), sym_points(lattice)
+
+
+def k_point(lattice: str, no: int, gap: int = GAP) -> np.ndarray:
+    """Interpolated wave vector at path position ``no``
+    (reference: dielectric.py:37-49)."""
+    sym = sym_points(lattice)
+    i0, j0 = no // gap, no % gap
+    if j0 == 0:
+        return sym[i0, :]
+    return (j0 * sym[i0 + 1, :] + (gap - j0) * sym[i0, :]) / gap
 
 
 def k_path(lattice: str, gap: int = GAP) -> np.ndarray:

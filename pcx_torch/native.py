@@ -114,6 +114,16 @@ def load(path: Optional[str] = None) -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the engine builds (or is built) and loads here.  Only this
+    question swallows the build's error: ``use_native=True`` raises it."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _mask(entry: str, shape, n: int, lattice: str, ct_inv_t,
           lib: Optional[ctypes.CDLL]) -> np.ndarray:
     if lattice not in FLAG_IDS:

@@ -424,3 +424,46 @@ def test_phase_breakdown_on_cuda():
     for k in ("operator_s", "precond_s", "gram_rr_s", "update_s", "ortho_s",
               "iteration_estimate_s", "memory_mib"):
         assert np.isfinite(out[k]) and out[k] > 0, k
+
+
+def _n24_pin() -> dict:
+    with open(os.path.join(ROOT, "data", "bcc_sg_n24_k37_f64.json")) as f:
+        return json.load(f)
+
+
+def test_complex64_gyroid_solve_on_cuda_matches_the_f64_pin():
+    """A complex64 solve on the card at bcc_sg N=24, k_path index 37, with
+    record_vs_truth's termination levers, lies within 5e-5 of the committed
+    complex128 pin data/bcc_sg_n24_k37_f64.json: the gate of the JAX
+    package's live test (tests/test_bandstructure.py,
+    test_live_c64_solve_matches_f64_ground_truth)."""
+    from pcx_torch.lattices import k_path
+    from pcx_torch.record_vs_truth import LEVERS
+    dev = _cuda()
+    truth = _n24_pin()
+    alpha = k_path("bcc_sg")[truth["k"]]
+    np.testing.assert_allclose(alpha / np.pi, truth["alpha_over_pi"],
+                               atol=1e-9)
+    kps = KPointSolver(ProblemConfig(n=24, lattice="bcc_sg", nev=10),
+                       device=dev, dtype=torch.complex64, refine=False,
+                       solver_opts=dict(LEVERS))
+    k1, k2 = resid_precond.launches, axis_dft.launches
+    res = kps.solve(alpha, seed=0)
+    assert resid_precond.launches > k1 and axis_dft.launches > k2
+    np.testing.assert_allclose(res.omega_re[:10], truth["omega_f64"],
+                               rtol=0, atol=5e-5)
+
+
+def test_f64_truth_on_cuda_reproduces_the_f64_pin():
+    """``f64_truth`` on the card (complex128) reproduces the committed pin
+    data/bcc_sg_n24_k37_f64.json, a CPU solve of the JAX package, to 1e-6,
+    in the committed record's keys."""
+    from pcx_torch import f64_truth as ft
+    dev = _cuda()
+    truth = _n24_pin()
+    out = ft.f64_truth("bcc_sg", 24, truth["k"], device=dev)
+    assert out.record["status"] in (1, 5)
+    assert list(out.record) == list(truth)
+    assert out.peak_gib > 0
+    np.testing.assert_allclose(out.record["omega_f64"], truth["omega_f64"],
+                               rtol=0, atol=1e-6)

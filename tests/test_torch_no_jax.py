@@ -34,7 +34,10 @@ missing = sorted({"pcx_torch.io", "pcx_torch.metrics",
                   "pcx_torch.experiments.runtime", "pcx_torch.profiling",
                   "pcx_torch.operators.dense", "pcx_torch.parallel",
                   "pcx_torch.parallel.mesh", "pcx_torch.parallel.fft",
-                  "pcx_torch.parallel.solve", "pcx_torch.native"}
+                  "pcx_torch.parallel.solve", "pcx_torch.native",
+                  "pcx_torch.f64_truth", "pcx_torch.record_vs_truth",
+                  "pcx_torch.rescue_point", "pcx_torch.preflight_queue",
+                  "pcx_torch.iter_tail"}
                  - set(names))
 print(len(names), bad, missing)
 """
