@@ -30,11 +30,12 @@ failure ends the run with a non-zero exit:
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
              point of ``bench.py --sweep 0``, gated against the committed
              complex64 library row (output_c64/chiral/bandgap_sc_curv.json).
-8. warm    — fcc chiral N=120: a cold solve at k_path("fcc")[9], then warm
-             solves at 10 and 11 (the sweep protocol of bench.py), each
-             gated like the single point against bandgap_fcc.json.
+8. warm    — fcc chiral N=120: a cold solve at k_path("fcc")[9], then a
+             warm solve at 10 (the sweep protocol of bench.py, whose 20
+             points phase 20 runs), each gated like the single point
+             against bandgap_fcc.json.
 9. sweep   — ``bandgap`` fcc N=120 complex64 with rr_gram="pallas" over
-             k_path indices 8-12 (one cold point, four warm), every row
+             k_path indices 8-11 (one cold point, three warm), every row
              within 3.5e-3 of bandgap_fcc.json; then row 10 marked failed
              and swept again, which must go through the warm feeder,
              restore it and leave rows 9 and 11 byte for byte.
@@ -156,7 +157,7 @@ failure ends the run with a non-zero exit:
              first rung that recovers the row): row 100 recovered within
              1e-3 of the pin, with the rung that did it, each rung's
              seconds and peak memory; (d) bcc_sg rows
-             36-38 and bcc_dg rows 18-20 (19 is exact Gamma) of copies of
+             36-37 and bcc_dg rows 18-20 (19 is exact Gamma) of copies of
              the committed libraries reset and swept with the runner's
              settings (rr_gram="pallas", refine="light"), gated like phase
              14, bcc_sg 37 and bcc_dg 19 within 1e-5 of their f64 pins,
@@ -169,6 +170,20 @@ failure ends the run with a non-zero exit:
              OK (the golden column printed, not gated); (g) ``iter_tail``
              at N=48, sc_curv chiral: every status CONVERGED or FLOOR and
              every val <= 1e-3.  Nothing is cut.
+20. bench  — the port's benchmarks through their entry points
+             (``pcx_torch.bench.run``, ``bench_matrix.main``): (a) the
+             default protocol of ``python -m pcx_torch.bench``, fcc N=120
+             over 20 warm points: its JSON record without ``_partial`` and
+             with points 20, every point's frequencies within 3.5e-3 of its
+             row (10 + i) of output_c64/chiral/bandgap_fcc.json, with
+             s/k-point, each point's iterations, the cold retries and the
+             peak memory; (b) ``--sweep 0``, sc_curv N=120 at (pi, 0, 0),
+             each rep within 3.5e-3 of the committed row as in phase 7; (c)
+             ``bench_matrix --rows north_star --reps 1`` (bcc_dg chiral and
+             cross-DoF, N=120) into a temporary ``--out``: both rows, each
+             within the 1e-3 spurious gate; (d) ``python -m pcx_torch.bench
+             --sweep 0 --repeats 1`` in a subprocess: exit 0, the JSON line
+             last.  K1 and K2 must launch in (a), (b) and (c).
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
@@ -178,13 +193,15 @@ sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
 solve of phase 13, around phase 14, around each solve of phase 16,
 around phase 17 (K1 and K2 must launch), on rank 0 around phase 18's
 ``bandgap(mesh=)`` (K1, K2 and K3 must launch) and around phase 19 (K1,
-K2 and K3 must launch, in its sweeps (d) too).
+K2 and K3 must launch, in its sweeps (d) too), and around each of phase
+20's (a), (b) and (c) (K1 and K2 must launch).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
 two-grid start's of phase 16; ``launches_experiments``: phase 17's;
 ``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``;
-``launches_library``: phase 19's), the
+``launches_library``: phase 19's; ``launches_bench``: phase 20's
+default protocol), the
 kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -228,7 +245,8 @@ FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 K2_B, K2_TOL = 48, 5e-6
 K2_NS = [100, 120, 150]
 K2_SMALL_NS = [16, 32, 34, 50, 60, 75]
-SWEEP_INDICES = [8, 9, 10, 11, 12]
+SWEEP_INDICES = [8, 9, 10, 11]
+WARM_INDICES = (9, 10)
 PSEUDO_INDICES = [7, 8, 9, 10]
 TRIVIAL_INDEX = 10
 CROSSDOF, TRIVIAL = "pseudochiral_crossdof", "pseudochiral_trivial"
@@ -708,10 +726,10 @@ def phase_warm(dev, n: int = N, golden: bool = True) -> float:
     kps = KPointSolver(ProblemConfig(n=n, lattice="fcc", nev=NEV),
                        device=dev, dtype=torch.complex64)
     path = lattices.k_path("fcc")
-    print(f"phase warm: fcc N={n}, cold at k_path index 9, warm at 10, 11",
-          flush=True)
+    print(f"phase warm: fcc N={n}, cold at k_path index {WARM_INDICES[0]}, "
+          f"warm at {', '.join(map(str, WARM_INDICES[1:]))}", flush=True)
     x_prev = None
-    for i in (9, 10, 11):
+    for i in WARM_INDICES:
         alpha = path[i]
         gold = golden_row("fcc", n, i) if golden else None
         res = kps.solve(alpha, x0=x_prev, seed=i, validate_result=False)
@@ -1734,7 +1752,7 @@ LIB_K = 100
 LIB_PIN = "bcc_sg_n120_k100_f64.json"
 PIN_TOL = 1e-6           # (a): the complex128 solve against the pin
 RECORD_GATE = 1e-3       # (b), (c): record_vs_truth's gate
-GYROID_ROWS = (("bcc_sg", [36, 37, 38]), ("bcc_dg", [18, 19, 20]))
+GYROID_ROWS = (("bcc_sg", [36, 37]), ("bcc_dg", [18, 19, 20]))
 GYROID_PINS = {("bcc_sg", 37): "bcc_sg_k37_f64.json",
                ("bcc_dg", 19): "bcc_dg_n120_k19_f64.json"}
 GYROID_PIN_TOL = 1e-5    # tests/test_bandstructure.py:597-628
@@ -2048,6 +2066,117 @@ def phase_library(dev, n: int = N, golden: bool = True,
     return counts
 
 
+# Phase 20: the benchmarks' arguments: the default protocol (fcc, 20 warm
+# points), the single point, the matrix's north-star rows and the command.
+BENCH_DEFAULT = []
+BENCH_SINGLE = ["--sweep", "0"]
+BENCH_MATRIX = ["--rows", "north_star", "--reps", "1"]
+BENCH_CLI = ["-m", "pcx_torch.bench", "--sweep", "0", "--repeats", "1"]
+
+
+def _bench_launched(dev, counts: dict, tag: str) -> None:
+    print(f"  {tag}: launches {counts}", flush=True)
+    if dev.type == "cuda" and not (counts["resid_precond"]
+                                   and counts["axis_dft"]):
+        fail(f"bench {tag}: K1 or K2 never launched: {counts}")
+
+
+def phase_bench(dev, n: int = N, golden: bool = True,
+                points: int = 20, default=BENCH_DEFAULT,
+                single=BENCH_SINGLE, matrix=BENCH_MATRIX,
+                cli=BENCH_CLI) -> dict:
+    """Phase 20: ``python -m pcx_torch.bench`` and ``bench_matrix`` through
+    their entry points, in this process but (d): (a) the default protocol,
+    (b) ``--sweep 0``, (c) the matrix's north-star rows into a temporary
+    ``--out``, (d) the command in a subprocess.  ``golden`` holds (a) and
+    (b) to the committed rows.  Returns the kernel launches of (a)."""
+    from pcx_torch import bench, bench_matrix
+    from pcx_torch import kernels as kmod
+    print(f"phase bench: python -m pcx_torch.bench {' '.join(default)} "
+          f"(the default protocol), {' '.join(single)}; bench_matrix "
+          f"{' '.join(matrix)}; the command", flush=True)
+    t_phase = time.time()
+
+    def entry(fn, argv):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        t0 = time.time()
+        out, _ = captured(fn, argv)
+        return out, time.time() - t0, kmod.launches(), _peak_gib(dev)
+
+    (code, rec, pts), wall, counts_a, peak = entry(bench.run, default)
+    if code or rec is None:
+        fail(f"bench (a): exit {code}")
+    want = f"fcc_n{n}_sweep_mean_seconds"
+    print(f"  (a) {rec['metric']}: {rec['value']} s/k-point over "
+          f"{rec['points']} points ({wall:.3f} s with the warm-up), "
+          f"vs_baseline {rec['vs_baseline']}; iterations "
+          f"{[p['iters'] for p in pts]}; {sum(p['cold_retry'] for p in pts)}"
+          f" cold retries; peak device memory {peak:.2f} GiB", flush=True)
+    if rec["metric"] != want or rec["points"] != points:
+        fail(f"bench (a): {rec['metric']} over {rec['points']} points, "
+             f"not {want} over {points}")
+    for p in pts:
+        gold = golden_row("fcc", n, p["index"]) if golden else None
+        d = (float(np.abs(np.asarray(p["omega"]) - gold).max())
+             if golden else float("nan"))
+        print(f"    k={p['index']}: {p['status']} iters {p['iters']} wall "
+              f"{p['wall']:.3f} s{' (cold retry)' if p['cold_retry'] else ''}"
+              f" max|omega - committed| {d:.3e}", flush=True)
+        if golden and not d <= GOLDEN_TOL:
+            fail(f"bench (a) k={p['index']}: {d:.3e} from the committed row")
+    _bench_launched(dev, counts_a, "(a)")
+
+    (code, rec, pts), wall, counts, peak = entry(bench.run, single)
+    if code or rec is None:
+        fail(f"bench (b): exit {code}")
+    gold = golden_row("sc_curv", n, 19) if golden else None
+    devs = [float(np.abs(np.asarray(p["omega"]) - gold).max())
+            if golden else float("nan") for p in pts]
+    print(f"  (b) {rec['metric']}: {rec['value']} s, vs_baseline "
+          f"{rec['vs_baseline']}; iterations {[p['iters'] for p in pts]}; "
+          f"max|omega - committed| {max(devs):.3e}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    if rec["metric"] != f"sc_curv_n{n}_kpoint_solve_seconds":
+        fail(f"bench (b): metric {rec['metric']}")
+    if golden and not max(devs) <= GOLDEN_TOL:
+        fail(f"bench (b): {max(devs):.3e} from the committed row")
+    _bench_launched(dev, counts, "(b)")
+
+    with tempfile.TemporaryDirectory(prefix="pcx_bench_") as tmp:
+        out = os.path.join(tmp, "matrix.jsonl")
+        code, wall, counts, peak = entry(bench_matrix.main,
+                                         matrix + ["--out", out])
+        rows = {}
+        if os.path.exists(out):
+            with open(out) as f:
+                rows = {r["row"]: r for r in map(json.loads, f)}
+    for r in rows.values():
+        print(f"  (c) {r['row']}: {r['seconds']} s, {r['iters']} iters, "
+              f"validation {r['validation']:.3e}, vs_baseline "
+              f"{r['vs_baseline']} ({r['device']})", flush=True)
+    print(f"  (c) {wall:.3f} s; peak device memory {peak:.2f} GiB",
+          flush=True)
+    want = {r[0] for r in bench_matrix.ROWS[:2]}
+    if code or set(rows) != want:
+        fail(f"bench_matrix (c): exit {code}, rows {sorted(rows)}")
+    if not all(r["validation"] <= SPURIOUS_TOL for r in rows.values()):
+        fail("bench_matrix (c): a row above the spurious gate")
+    _bench_launched(dev, counts, "(c)")
+
+    t0 = time.time()
+    r = run_cmd([sys.executable] + cli, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    print(f"  (d) python {' '.join(cli)}: exit {r.returncode} in "
+          f"{time.time() - t0:.3f} s: {lines[-1] if lines else ''}",
+          flush=True)
+    if r.returncode != 0 or not lines or '"metric"' not in lines[-1]:
+        fail(f"bench (d): exit {r.returncode}, {r.stderr[-2000:]}")
+    print(f"  phase bench: {time.time() - t_phase:.3f} s", flush=True)
+    return counts_a
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -2165,6 +2294,9 @@ def main() -> None:
         rec["launches_library"] = counts[rec["name"]]
     if not all(rec["launches_library"] > 0 for rec in kernels):
         fail(f"a kernel never launched in phase 19: {counts}")
+    counts = phase_bench(dev)
+    for rec in kernels:
+        rec["launches_bench"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,10 @@ import torch.distributed as dist
 RED = "\033[31m"
 GREEN = "\033[32m"
 YELLOW = "\033[33m"
+BLUE = "\033[34m"
+MAGENTA = "\033[35m"
+CYAN = "\033[36m"
+WHITE = "\033[37m"
 RESET = "\033[0m"
 
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}

@@ -467,3 +467,18 @@ def test_f64_truth_on_cuda_reproduces_the_f64_pin():
     assert out.peak_gib > 0
     np.testing.assert_allclose(out.record["omega_f64"], truth["omega_f64"],
                                rtol=0, atol=1e-6)
+
+
+def test_bench_single_point_on_cuda():
+    """``python -m pcx_torch.bench --sweep 0 --n 32`` in-process on the
+    card: complex64 solves through K1 and K2, each CONVERGED or FLOOR, and
+    the JSON record with the card's name in ``device``."""
+    from pcx_torch import bench
+    _cuda()
+    k1, k2 = resid_precond.launches, axis_dft.launches
+    code, rec, points = bench.run(["--sweep", "0", "--n", "32"])
+    assert code == 0 and len(points) == 2
+    assert resid_precond.launches > k1 and axis_dft.launches > k2
+    assert rec["metric"] == "sc_curv_n32_kpoint_solve_seconds"
+    assert rec["value"] > 0 and rec["device"] != "cpu"
+    assert all(p["status"] in ("CONVERGED", "FLOOR") for p in points)

@@ -9,10 +9,12 @@ from pcx import config as jcfg
 from pcx import geometry as jgeo
 from pcx import lattices as jlat
 from pcx import stencils as jst
+from pcx import utils as jutils
 from pcx_torch import config as tcfg
 from pcx_torch import geometry as tgeo
 from pcx_torch import lattices as tlat
 from pcx_torch import stencils as tst
+from pcx_torch import utils as tutils
 
 
 @pytest.mark.parametrize("n", [8, 10])
@@ -51,3 +53,9 @@ def test_set_relaxation_and_block_width_match_pcx(alpha):
     for nev in (4, 10):
         assert tcfg.block_width(nev, rlx) == jcfg.block_width(nev, rlx)
     assert tcfg.block_width(10) == 16
+
+
+@pytest.mark.parametrize("name", ["RED", "GREEN", "YELLOW", "BLUE", "MAGENTA",
+                                  "CYAN", "WHITE", "RESET"])
+def test_colour_constants_match_pcx(name):
+    assert getattr(tutils, name) == getattr(jutils, name)

@@ -37,7 +37,8 @@ missing = sorted({"pcx_torch.io", "pcx_torch.metrics",
                   "pcx_torch.parallel.solve", "pcx_torch.native",
                   "pcx_torch.f64_truth", "pcx_torch.record_vs_truth",
                   "pcx_torch.rescue_point", "pcx_torch.preflight_queue",
-                  "pcx_torch.iter_tail"}
+                  "pcx_torch.iter_tail", "pcx_torch.bench",
+                  "pcx_torch.bench_matrix"}
                  - set(names))
 print(len(names), bad, missing)
 """
