@@ -19,8 +19,11 @@ failure ends the run with a non-zero exit:
              the one-axis torch.fft.fft (the library call) and
              torch.matmul on the permuted view, the tensor-map encode per
              launch; then both directions at N=16, 32,
-             34 (a dense stage), 50, 60, 75 (odd K: cp.async), and the
-             wrapper's host cost per call.
+             34 (a dense stage), 50, 60, 75 (odd K: cp.async); then at
+             N=120 and B=12, 24 (the W apply under w_cap at widths 4 and
+             8), each direction against the einsum and complex128, timed
+             beside its bytes bound, the einsum and the one-axis
+             torch.fft.fft; and the wrapper's host cost per call.
 5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
              (and both against complex128); timed beside the stacked
              ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
@@ -48,8 +51,8 @@ failure ends the run with a non-zero exit:
              16-column apply of each dielectric (cross-DoF with preset 0,
              one non-zero off-diagonal entry, and preset 3, all three).
 11. pseudo-sweep — ``bandgap`` sc_curv pseudochiral_crossdof N=120 complex64
-             with rr_gram="pallas" over k_path indices 7-10 (one cold point,
-             three warm), every row CONVERGED or FLOOR, inside the 1e-3
+             with rr_gram="pallas" over k_path indices 7-9 (one cold point,
+             two warm), every row CONVERGED or FLOOR, inside the 1e-3
              spurious gate and within 3.5e-3 of
              output_c64/pseudochiral_crossdof/bandgap_sc_curv.json (a warm
              solve that the sweep rejects and retries cold is printed and
@@ -177,13 +180,28 @@ failure ends the run with a non-zero exit:
              with points 20, every point's frequencies within 3.5e-3 of its
              row (10 + i) of output_c64/chiral/bandgap_fcc.json, with
              s/k-point, each point's iterations, the cold retries and the
-             peak memory; (b) ``--sweep 0``, sc_curv N=120 at (pi, 0, 0),
-             each rep within 3.5e-3 of the committed row as in phase 7; (c)
+             peak memory; (b) ``--sweep 0 --repeats 1``, sc_curv N=120 at
+             (pi, 0, 0), within 3.5e-3 of the committed row as in phase 7; (c)
              ``bench_matrix --rows north_star --reps 1`` (bcc_dg chiral and
              cross-DoF, N=120) into a temporary ``--out``: both rows, each
              within the 1e-3 spurious gate; (d) ``python -m pcx_torch.bench
              --sweep 0 --repeats 1`` in a subprocess: exit 0, the JSON line
              last.  K1 and K2 must launch in (a), (b) and (c).
+21. w_cap  — the W/P width cap of the production LOBPCG: (b) phase 7's
+             point cold with col_patience=3 and w_cap=8, then with
+             w_cap="auto", each gated like phase 7, with its iterations,
+             ms/iteration, the iterations and ms/iteration at each width
+             (``iteration_clock``) and at each active count, the launches
+             (K2 by batch B; K2 must launch at B=24 under w_cap=8) and the
+             peak memory; (b') w_cap=4 cut at 24 iterations, to time the
+             width-4 iteration (not gated; K2 must launch at B=12); (c) the
+             default protocol of ``python -m pcx_torch.bench`` with
+             LIBRARIES.md's lever stack, ``--solver-opt lam_tol=2e-6
+             floor_patience=3 col_patience=3 w_cap=auto``: 20 points, each
+             within 3.5e-3 of its committed row, the mean s/k-point beside
+             the stack's 0.906 s without w_cap (PR 11), each point's
+             iterations at each width, and the same numbers.  K1 and K2
+             must launch in each solve of (b) and in (c).
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
@@ -193,15 +211,17 @@ sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
 solve of phase 13, around phase 14, around each solve of phase 16,
 around phase 17 (K1 and K2 must launch), on rank 0 around phase 18's
 ``bandgap(mesh=)`` (K1, K2 and K3 must launch) and around phase 19 (K1,
-K2 and K3 must launch, in its sweeps (d) too), and around each of phase
-20's (a), (b) and (c) (K1 and K2 must launch).
+K2 and K3 must launch, in its sweeps (d) too), around each of phase
+20's (a), (b) and (c) (K1 and K2 must launch), and around each solve of
+phase 21 (b) and its (c) (K1 and K2 must launch).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
 two-grid start's of phase 16; ``launches_experiments``: phase 17's;
 ``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``;
 ``launches_library``: phase 19's; ``launches_bench``: phase 20's
-default protocol), the
+default protocol; ``launches_wcap``: phase 21 (c)'s, K2's also by batch
+in ``launches_wcap_by_batch``; K2's ``by_batch``: phase 4 at B=12, 24), the
 kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
@@ -245,9 +265,12 @@ FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 K2_B, K2_TOL = 48, 5e-6
 K2_NS = [100, 120, 150]
 K2_SMALL_NS = [16, 32, 34, 50, 60, 75]
+# ... and at N=120 at the batches of the W apply under w_cap: B = 3 wc for
+# the buckets wc = m/4 and m/2 of m=16 (phase 21)
+K2_WCAP_BS = [12, 24]
 SWEEP_INDICES = [8, 9, 10, 11]
 WARM_INDICES = (9, 10)
-PSEUDO_INDICES = [7, 8, 9, 10]
+PSEUDO_INDICES = [7, 8, 9]
 TRIVIAL_INDEX = 10
 CROSSDOF, TRIVIAL = "pseudochiral_crossdof", "pseudochiral_trivial"
 # Phase 12: the tools/tpu_smoke.py protocol; phase 13: the full-width solves
@@ -442,6 +465,47 @@ def _k2_pass(x, inverse: bool, scale_tol: float = K2_TOL) -> tuple:
     return err, scale, err_128, scale_128
 
 
+def _k2_batch(gen, dev, b: int, peak: float, lib) -> dict:
+    """K2 at N=120 and batch ``b``: both directions against the plain
+    version and complex128, each timed beside its bytes bound, the plain
+    version and the one-axis torch.fft.fft at the same shape."""
+    from pcx_torch.kernels.axis_dft import (axis_dft, axis_dft_plain,
+                                            plan_flops)
+    from pcx_torch.operators.dft import dft_mats
+    n = N
+    x = torch.randn((b, n, n, n), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    bd = bound(plan_flops(n) * b * n ** 3, 8.0 * 2 * b * n ** 3, peak)
+    errs, worst, worst_128 = [], 0.0, 0.0
+    for inverse in (False, True):
+        err, scale, err_128, scale_128 = _k2_pass(x, inverse)
+        worst, worst_128 = max(worst, err), max(worst_128, err_128)
+        errs.append(f"{'inv' if inverse else 'fwd'} {err / scale:.3e} "
+                    f"(c128 {err_128 / scale_128:.3e})")
+    ms = cuda_ms(lambda: axis_dft(x))
+    ms_inv = cuda_ms(lambda: axis_dft(x, True))
+    mats = dft_mats(n, torch.complex64, dev)
+    plain_ms = cuda_ms(lambda: axis_dft_plain(x, mats.fwd))
+    xp = x.permute(0, 2, 3, 1)
+    fft_dense = torch.fft.fft(xp, dim=-1).is_contiguous()
+    fft_ms = cuda_ms(lambda: torch.fft.fft(xp, dim=-1) if fft_dense
+                     else torch.fft.fft(xp, dim=-1).contiguous())
+    enc_us = lib.pcx_axis_dft_encode_us(x.data_ptr(), b, n, n, n, 1000)
+    print(f"phase k2: B={b} N={n} (the W apply at w_cap width {b // 3}) "
+          f"max|dy|/scale {'; '.join(errs)}; kernel fwd {ms:.3f} ms inv "
+          f"{ms_inv:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+          f"({bd['bound_by']}) = {100 * bd['bound_ms'] / ms:.1f}% / "
+          f"{100 * bd['bound_ms'] / ms_inv:.1f}% reached; einsum "
+          f"{plain_ms:.3f} ms; library: torch.fft.fft on the contracted axis"
+          f" {fft_ms:.3f} ms; tensor-map encode {enc_us:.2f} us per launch",
+          flush=True)
+    del x, xp
+    return {"ms": ms, "ms_inverse": ms_inv, "plain_ms": plain_ms, **bd,
+            "share": bd["bound_ms"] / ms, "library_ms": fft_ms,
+            "encode_us": enc_us, "max_abs_err": worst,
+            "max_abs_err_c128": worst_128}
+
+
 def phase_k2(gen, dev, peak: float) -> dict:
     """K2 at B=48 and the grids of the paths: each direction against its
     plain version and complex128, dft3 against fftn and back, the time per
@@ -527,6 +591,11 @@ def phase_k2(gen, dev, peak: float) -> dict:
                    "plan_gflop": ops / 1e9, "dft3_ms": dft3_ms,
                    "cufft_fftn_ms": fftn_ms, "encode_us": enc_us}
         del x, xp
+    rec["by_batch"] = {b: _k2_batch(gen, dev, b, peak, lib)
+                       for b in K2_WCAP_BS}
+    worst = max([worst] + [r["max_abs_err"] for r in rec["by_batch"].values()])
+    worst_128 = max([worst_128] + [r["max_abs_err_c128"]
+                                   for r in rec["by_batch"].values()])
     # the wrapper's host cost per call at a launch-bound size
     x = torch.randn((2, 16, 16, 16), generator=gen, device=dev,
                     dtype=torch.complex64)
@@ -2069,7 +2138,7 @@ def phase_library(dev, n: int = N, golden: bool = True,
 # Phase 20: the benchmarks' arguments: the default protocol (fcc, 20 warm
 # points), the single point, the matrix's north-star rows and the command.
 BENCH_DEFAULT = []
-BENCH_SINGLE = ["--sweep", "0"]
+BENCH_SINGLE = ["--sweep", "0", "--repeats", "1"]
 BENCH_MATRIX = ["--rows", "north_star", "--reps", "1"]
 BENCH_CLI = ["-m", "pcx_torch.bench", "--sweep", "0", "--repeats", "1"]
 
@@ -2175,6 +2244,177 @@ def phase_bench(dev, n: int = N, golden: bool = True,
         fail(f"bench (d): exit {r.returncode}, {r.stderr[-2000:]}")
     print(f"  phase bench: {time.time() - t_phase:.3f} s", flush=True)
     return counts_a
+
+
+# Phase 21: the W/P width cap.  (b) phase 7's point cold under an int cap
+# and under "auto"; (c) the default protocol of python -m pcx_torch.bench
+# with LIBRARIES.md's lever stack, beside its mean without w_cap (PR 11's
+# measurement, PERF.md section 6: NVIDIA H100 80GB HBM3, 700.00 W).
+WCAP_SOLVES = (("w_cap=8", {"col_patience": 3, "w_cap": 8}),
+               ("w_cap='auto'", {"col_patience": 3, "w_cap": "auto"}))
+# (b') the width-4 iteration, which (b) and (c) may never reach, timed over
+# a solve cut at this many iterations (not gated: it ends MAXITER)
+WCAP_TIMED = ("w_cap=4", {"col_patience": 3, "w_cap": 4}, 24)
+PROTOCOL = ["lam_tol=2e-6", "floor_patience=3", "col_patience=3",
+            "w_cap=auto"]
+PROTOCOL_ARGS = [a for kv in PROTOCOL for a in ("--solver-opt", kv)]
+PROTOCOL_NO_WCAP_S = 0.906
+
+
+@contextlib.contextmanager
+def iteration_clock():
+    """Wall time of each iteration of the production LOBPCG, with its W/P
+    width.  ``lobpcg_sep_rs`` builds its width rule once a solve
+    (``lobpcg_rs.width_rule``) and calls it once an iteration, right after
+    the iteration's one host synchronization; this wraps the builder so
+    that each call is stamped.  Yields a list that gets one list of
+    (perf_counter, width, active count) per solve."""
+    from pcx_torch.solvers import lobpcg_rs
+    build = lobpcg_rs.width_rule
+    solves = []
+
+    def stamped(*args, **kw):
+        rule, stamps = build(*args, **kw), []
+        solves.append(stamps)
+
+        def timed(it, n_act):
+            w = rule(it, n_act)
+            stamps.append((time.perf_counter(), w, n_act))
+            return w
+        return timed
+
+    lobpcg_rs.width_rule = stamped
+    try:
+        yield solves
+    finally:
+        lobpcg_rs.width_rule = build
+
+
+def ms_by_width(solves) -> dict:
+    """{width: [iterations timed, mean ms]}: each gap between two stamps of
+    a solve is one iteration at the first stamp's width (its step, then the
+    next residual pass and read-back; a refresh of H X and H P falls in the
+    iteration it follows)."""
+    gaps = {}
+    for stamps in solves:
+        for (t0, w, _), (t1, _, _) in zip(stamps, stamps[1:]):
+            gaps.setdefault(w, []).append(t1 - t0)
+    return {w: [len(g), round(1e3 * float(np.mean(g)), 3)]
+            for w, g in sorted(gaps.items())}
+
+
+def active_counts(solves) -> dict:
+    """{active columns: iterations} over the stamped solves."""
+    acts = [a for stamps in solves for _, _, a in stamps]
+    a, c = np.unique(np.asarray(acts, int), return_counts=True)
+    return dict(zip(a.tolist(), c.tolist()))
+
+
+def _wcap_launches(dev, tag: str, need_batch=None) -> dict:
+    """The launches since the last reset, K2's split by batch; fails
+    unless K1 and K2 launched (and K2 at ``need_batch``, if given)."""
+    from pcx_torch import kernels as kmod
+    counts, by_b = kmod.launches(), kmod.k2_launches_by_batch()
+    print(f"  {tag}: launches {counts}; K2 by batch B {by_b}", flush=True)
+    if dev.type == "cuda" and not (counts["resid_precond"]
+                                   and counts["axis_dft"]):
+        fail(f"w_cap {tag}: K1 or K2 never launched: {counts}")
+    if dev.type == "cuda" and need_batch and not by_b.get(need_batch):
+        fail(f"w_cap {tag}: K2 never launched at B={need_batch}: {by_b}")
+    return {**counts, "axis_dft_by_batch": by_b}
+
+
+def phase_wcap(dev, n: int = N, golden: bool = True,
+               protocol=PROTOCOL_ARGS, points: int = 20) -> dict:
+    """Phase 21: (b) the cold solves of WCAP_SOLVES at phase 7's point,
+    each gated like phase 7, with iterations, ms/iteration, the iterations
+    and ms/iteration at each width, the launches (K2 by batch) and the peak
+    memory; (c) ``pcx_torch.bench.run(protocol)``: every point within
+    3.5e-3 of its committed row, the mean s/k-point beside the mean
+    without w_cap, the same numbers over the chain.  Returns the launches
+    of (c), K2's by batch included."""
+    from pcx_torch import bench
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    t_phase = time.time()
+    alpha = np.array([np.pi, 0.0, 0.0])
+    print(f"phase w_cap: sc_curv N={n} alpha=(pi,0,0) cold with "
+          f"{', '.join(t for t, _ in WCAP_SOLVES)}; python -m "
+          f"pcx_torch.bench {' '.join(protocol)}", flush=True)
+    for tag, opts in WCAP_SOLVES:
+        kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=NEV),
+                           device=dev, dtype=torch.complex64,
+                           solver_opts=dict(opts))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        with iteration_clock() as solves:
+            res = kps.solve(alpha, seed=0, validate_result=False)
+        m = kps.block_width(alpha)
+        cap = opts["w_cap"] if isinstance(opts["w_cap"], int) else None
+        _wcap_launches(dev, f"(b) {tag}",
+                       need_batch=3 * min(cap, m) if cap else None)
+        w, c = np.unique(res.widths, return_counts=True)
+        print(f"  (b) {tag}: m={m}, iterations at each width "
+              f"{dict(zip(w.tolist(), c.tolist()))}; [iterations timed, ms] "
+              f"by width {ms_by_width(solves)}; iterations at each active "
+              f"count {active_counts(solves)}; peak device memory "
+              f"{_peak_gib(dev):.2f} GiB", flush=True)
+        why = gate(kps, alpha, res, golden_row("sc_curv", n, 19) if golden
+                   else None, f"(b) {tag}")
+        if why:
+            fail(f"w_cap (b) {tag}: {why}")
+        del kps, res
+    tag, opts, cut = WCAP_TIMED
+    kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=NEV),
+                       device=dev, dtype=torch.complex64, maxiter=cut,
+                       solver_opts=dict(opts))
+    kmod.reset_launches()
+    with iteration_clock() as solves:
+        res = kps.solve(alpha, seed=0, validate_result=False)
+    _wcap_launches(dev, f"(b') {tag}", need_batch=3 * opts["w_cap"])
+    print(f"  (b') {tag}, cut at {cut} iterations (timed, not gated): status "
+          f"{res.status} after {res.iterations}; [iterations timed, ms] by "
+          f"width {ms_by_width(solves)}", flush=True)
+    del kps, res
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kmod.reset_launches()
+    t0 = time.time()
+    with iteration_clock() as solves:
+        (code, rec, pts), _ = captured(bench.run, protocol)
+    wall = time.time() - t0
+    counts = _wcap_launches(dev, "(c)")
+    if code or rec is None or rec["points"] != points:
+        fail(f"w_cap (c): exit {code}, record {rec}")
+    widths = {}
+    for p in pts:
+        for w, c in p["widths"].items():
+            widths[w] = widths.get(w, 0) + c
+    print(f"  (c) {rec['metric']}: {rec['value']} s/k-point over "
+          f"{rec['points']} points ({wall:.3f} s with the warm-up) against "
+          f"{PROTOCOL_NO_WCAP_S} s without w_cap; iterations "
+          f"{[p['iters'] for p in pts]} ({sum(p['iters'] for p in pts)}); "
+          f"{sum(p['cold_retry'] for p in pts)} cold retries; iterations at "
+          f"each width over the points {dict(sorted(widths.items()))}; "
+          f"[iterations timed, ms] by width over every solve, warm-up "
+          f"included, {ms_by_width(solves)}; iterations at each active "
+          f"count {active_counts(solves)}; peak device memory "
+          f"{_peak_gib(dev):.2f} GiB", flush=True)
+    for p in pts:
+        gold = golden_row("fcc", n, p["index"]) if golden else None
+        d = (float(np.abs(np.asarray(p["omega"]) - gold).max())
+             if golden else float("nan"))
+        print(f"    k={p['index']}: {p['status']} iters {p['iters']} "
+              f"widths {p['widths']} wall {p['wall']:.3f} s"
+              f"{' (cold retry)' if p['cold_retry'] else ''} "
+              f"max|omega - committed| {d:.3e}", flush=True)
+        if golden and not d <= GOLDEN_TOL:
+            fail(f"w_cap (c) k={p['index']}: {d:.3e} from the committed row")
+    print(f"  phase w_cap: {time.time() - t_phase:.3f} s", flush=True)
+    return counts
 
 
 def main() -> None:
@@ -2297,6 +2537,10 @@ def main() -> None:
     counts = phase_bench(dev)
     for rec in kernels:
         rec["launches_bench"] = counts[rec["name"]]
+    counts = phase_wcap(dev)
+    for rec in kernels:
+        rec["launches_wcap"] = counts[rec["name"]]
+    kernels[1]["launches_wcap_by_batch"] = counts["axis_dft_by_batch"]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,11 @@ On a complex64 solve the operator's DFT passes run kernel K2 and, for the
 LOBPCG forms but ``mixed``, the residual/preconditioner pass runs kernel
 K1, whatever the dielectric; with
 ``solver_opts={"rr_gram": "pallas"}`` the Rayleigh-Ritz Gram of the LOBPCG
-forms runs kernel K3 (any dtype).  On CPU tensors the wrappers take their plain PyTorch
-versions.  The refine runs in complex128 with
-torch.fft, as the JAX refine runs its f64 pair operator with XLA products;
+forms runs kernel K3 (any dtype); with ``solver_opts={"w_cap": ...}`` the
+W apply runs K2 at the capped width (``lobpcg_sep_rs``).  On CPU tensors
+the wrappers take their plain PyTorch versions.  The refine runs in
+complex128 with torch.fft, as the JAX refine runs its f64 pair operator
+with XLA products;
 ``refine="light"`` validates in the iterate's dtype through the three-pass
 DFT (K2), with complex128-accumulated Grams.
 
@@ -71,8 +73,8 @@ from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, generator,
                              norms, real_dtype, sqrt_robust)
 
 SOLVER_OPTS = ("ortho_passes", "refresh_every", "floor_patience",
-               "col_patience", "lam_tol", "lam_patience", "lam_res_tol",
-               "rr_gram", "use_p", "subspace")
+               "maxstagniter", "col_patience", "lam_tol", "lam_patience",
+               "lam_res_tol", "rr_gram", "use_p", "w_cap", "subspace")
 # Keys of solver_opts that KPointSolver itself takes and pops before the
 # rest reach the solver (pcx/bandstructure.py:238, 255-257).
 SOLVE_OPTS = ("warm_maxiter", "doom_check", "doom_tol")
@@ -87,8 +89,8 @@ DAVIDSONS = ("davidson", "jd")
 # solver_opts keys of the LOBPCG solver that the JAX complex route, which
 # serves Davidson and JD, refuses (pcx/bandstructure.py:422-432); Davidson
 # and JD ignore the other LOBPCG keys, and take ``subspace`` alone.
-LOBPCG_ONLY_OPTS = ("rr_gram", "col_patience", "lam_tol", "lam_patience",
-                    "lam_res_tol")
+LOBPCG_ONLY_OPTS = ("rr_gram", "w_cap", "col_patience", "lam_tol",
+                    "lam_patience", "lam_res_tol")
 
 # Doom-check marks of a warm solve: the first at 24 iterations, then every
 # 40 (the JAX segmented solve's boundaries, bandstructure.py:1469-1503).
@@ -154,6 +156,8 @@ class EigenResult:
     wall_time: float
     status: int
     report: Optional[validate.ValidationReport]
+    widths: Optional[np.ndarray] = None   # W/P width of each iteration
+                                          # (the production LOBPCG only)
 
 
 class Symbols(NamedTuple):
@@ -184,6 +188,14 @@ class KPointSolver:
     ``doom_check`` (default True) bails a warm solve whose frequency-error
     bound stalls above ``doom_tol`` (default ``lam_res_tol``, else 1e-3);
     see pcx KPointSolver.__init__ for the measured rationale of both.
+    ``w_cap`` (an int or ``"auto"``) caps the width of the W and P blocks
+    of the production LOBPCG (``lobpcg_sep_rs``; refused by Davidson, JD,
+    ``solver_impl="complex"`` and, below the block width or as
+    ``"auto"``, by ``rr_gram="pallas"``); ``EigenResult.widths`` holds the
+    width of each iteration.  ``"auto"`` picks its bucket every iteration,
+    in ``solve``, ``solve_batch`` and ``bandgap`` alike: the JAX package's
+    one-shot and batched programs ran it at full width, because one
+    program has one width (pcx/bandstructure.py:159-164).
     ``solver``: ``"softlock"`` (production), ``"nolock"`` (every column
     stays active), ``"descent"`` (no conjugate block: ``use_p=False``) or
     ``"mixed"`` (the preconditioner in bfloat16 on real and imaginary
@@ -295,6 +307,16 @@ class KPointSolver:
             raise ValueError(f"solver_opts {refused} are not options of "
                              f"solver {solver!r} (solver_impl="
                              f"{self.impl!r})")
+        ow = opts.get("w_cap")
+        if ow is not None and not (ow == "auto" or (
+                isinstance(ow, int) and not isinstance(ow, bool))):
+            raise ValueError(f"solver_opts w_cap must be an int or 'auto', "
+                             f"got {ow!r}")
+        if ow == "auto" and opts.get("rr_gram") == "pallas":
+            # an int cap below the block width fails at the solve, which
+            # knows the width (pcx/bandstructure.py:654-660)
+            raise ValueError("w_cap (incl. 'auto') is not supported with "
+                             "rr_gram='pallas'")
         if dtype == torch.complex64:
             # complex64 robustness defaults of the JAX solver
             # (bandstructure.py:261-280): two orthogonalization passes,
@@ -516,6 +538,7 @@ class KPointSolver:
         if self._scale_refresh:
             opts = dict(opts, refresh_every=refresh_period(sy.pnt))
         self.last_doom = None
+        widths = None
         if self.solver in DAVIDSONS:
             fn = davidson_sep if self.solver == "davidson" else jd_sep
             kw = {k: v for k, v in self.solver_opts.items()
@@ -537,10 +560,12 @@ class KPointSolver:
                   else None)
             limit = (min(self.maxiter, self.warm_maxiter)
                      if warm and self.warm_maxiter > 0 else None)
+            widths = []
             res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
                                 maxiter=self.maxiter, locking=self.locking,
                                 rp_fused=rp, limit=limit,
-                                monitor=self._monitor(warm), **opts)
+                                monitor=self._monitor(warm), widths=widths,
+                                **opts)
         self._sync()
         wall = time.time() - t0 + x0_wall
         _heartbeat()
@@ -567,7 +592,9 @@ class KPointSolver:
                 omega_re = omega
         return EigenResult(omega=omega, omega_re=omega_re, lambdas=lambdas,
                            x=res.x, iterations=res.iterations,
-                           wall_time=wall, status=status, report=report)
+                           wall_time=wall, status=status, report=report,
+                           widths=(None if widths is None
+                                   else np.asarray(widths, np.int64)))
 
     def refine_stats(self, alpha, x: torch.Tensor):
         """complex128 Rayleigh-Ritz refine of the iterated subspace and the

@@ -73,6 +73,15 @@ def _omega(res):
             else np.asarray(res.omega_re, float).tolist())
 
 
+def width_counts(res) -> dict:
+    """{width of the W and P blocks: iterations} of a solve (``w_cap``);
+    empty where the solver records no widths."""
+    if res.widths is None:
+        return {}
+    w, n = np.unique(res.widths, return_counts=True)
+    return {int(a): int(b) for a, b in zip(w, n)}
+
+
 def say(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -163,7 +172,9 @@ def sweep_protocol(solver, lattice: str, k: int, x0=None) -> Sweep:
     """The timed warm chain over ``k_path(lattice)[(10 + i) % len]``, i < k,
     from the Ritz block ``x0``.  Each point's record: ``i``, ``index``
     (path index), ``status``, ``iters``, ``wall`` (s, a cold retry's
-    included), ``omega`` (the Ritz frequencies), ``cold_retry`` and ``ok``.
+    included), ``omega`` (the Ritz frequencies), ``widths`` (iterations at
+    each W/P width, of the accepted or last solve: ``width_counts``),
+    ``cold_retry`` and ``ok``.
     Stops at a device error or at the third failed point."""
     from pcx_torch import lattices
     path = lattices.k_path(lattice)
@@ -201,6 +212,7 @@ def sweep_protocol(solver, lattice: str, k: int, x0=None) -> Sweep:
                        "status": Status(result.status).name,
                        "iters": int(result.iterations), "wall": wall,
                        "omega": _omega(result),
+                       "widths": width_counts(result),
                        "cold_retry": retried, "ok": ok})
         if not ok:
             n_failed = sum(not p["ok"] for p in points)
@@ -241,6 +253,7 @@ def single_protocol(solver, alpha, repeats: int) -> tuple:
                        "iters": int(result.iterations),
                        "wall": result.wall_time,
                        "omega": _omega(result),
+                       "widths": width_counts(result),
                        "cold_retry": False, "ok": ok})
         if not ok:
             say(f"# ERROR: solver status {Status(result.status).name}")

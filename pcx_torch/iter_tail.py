@@ -13,10 +13,9 @@ stop (BENCH_NOTES.md, "Iteration-tail decomposition").
 
 The solves take the port's production route (the pair-layout LOBPCG with
 K1 and K2 on the card), which stands in for the JAX tool's
-``solver_impl="rs", real_boundary=True``.  ``stack_p3`` and
-``stack_lam2e6`` keep their names but leave out the JAX tool's ``w_cap``,
-a TPU bucket program the port does not have (ROADMAP.md, "Do not port").
-The JAX tool ran on the CPU because the TPU was scarce; this one runs on
+``solver_impl="rs", real_boundary=True``; the variants are the JAX
+tool's, ``w_cap="auto"`` of ``stack_p3`` and ``stack_lam2e6`` included
+(its bucket picked every iteration, ``lobpcg_sep_rs``).  The JAX tool ran on the CPU because the TPU was scarce; this one runs on
 the card unless ``--cpu`` is given (complex64 either way), and without a
 card and without ``--cpu`` exits non-zero.
 """
@@ -34,13 +33,13 @@ VARIANTS = [
     ("base", {}),
     ("p3", {"floor_patience": 3}),
     ("colp3", {"col_patience": 3}),
-    ("stack_p3", {"floor_patience": 3, "col_patience": 3}),
+    ("stack_p3", {"floor_patience": 3, "col_patience": 3, "w_cap": "auto"}),
     # the complex64 Ritz jitter measured 4e-7 to 1.6e-6 per iteration (N=16
     # sc_curv): lam_tol must sit just above that band to fire
     ("lam2e6", {"lam_tol": 2e-6}),
     ("lam5e6", {"lam_tol": 5e-6}),
     ("stack_lam2e6", {"floor_patience": 3, "col_patience": 3,
-                      "lam_tol": 2e-6}),
+                      "w_cap": "auto", "lam_tol": 2e-6}),
 ]
 ALPHAS = (np.array([np.pi, 0.0, 0.0]), np.array([np.pi / 3, np.pi / 5, 0.0]))
 

@@ -7,7 +7,9 @@ of ``pcx/operators/pallas_kernels.py``:
 * K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``).
 
 Each wrapper counts its launches in a plain integer attribute
-(``resid_precond.launches``), incremented only where the kernel launches.
+(``resid_precond.launches``), incremented only where the kernel launches;
+K2 also counts them by its batch B (``axis_dft.launches_by_batch``, 3 m
+in an operator apply on m columns).
 """
 
 from pcx_torch.kernels.axis_dft import axis_dft
@@ -20,7 +22,13 @@ WRAPPERS = (resid_precond, axis_dft, gram9)
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    axis_dft.launches_by_batch = {}
 
 
 def launches() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def k2_launches_by_batch() -> dict:
+    """K2's launches since the last reset, by batch B, in ascending B."""
+    return dict(sorted(axis_dft.launches_by_batch.items()))

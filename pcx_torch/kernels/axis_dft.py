@@ -148,7 +148,9 @@ def axis_dft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
                               plan.n1, plan.n2, stream)
     _build.check(rc, "axis_dft")
     axis_dft.launches += 1
+    axis_dft.launches_by_batch[b] = axis_dft.launches_by_batch.get(b, 0) + 1
     return y
 
 
 axis_dft.launches = 0
+axis_dft.launches_by_batch = {}   # batch B -> launches

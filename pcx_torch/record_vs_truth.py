@@ -12,11 +12,10 @@ are already accurate.  Where a converged pin exists (``f64_truth``), the
 row is recorded iff max |omega - omega_f64| < ``--gate`` (default 1e-3, the
 library-wide spurious gate), a stronger test than the bound.
 
-Each try is a complex64 solve with the termination levers lam_tol 2e-6,
-floor_patience 3 and col_patience 3 and seed 1000 + 7 t, validated by the
-complex128 refine; the tries stop once one is within gate / 4.  The JAX
-tool's fourth lever, ``w_cap``, is a TPU bucket program the port does not
-have (ROADMAP.md, "Do not port").  The best try is written into
+Each try is a complex64 solve with the JAX tool's four levers (lam_tol
+2e-6, floor_patience 3, col_patience 3 and w_cap "auto") and seed
+1000 + 7 t, validated by the complex128 refine; the tries stop once one is
+within gate / 4.  The best try is written into
 ``<output>/<diel>/bandgap_<lattice><eps_opt>.json`` as one row; a best
 deviation at or above the gate writes nothing and exits 1.
 
@@ -38,7 +37,8 @@ import torch
 
 from pcx_torch.f64_truth import pin_path
 
-LEVERS = {"lam_tol": 2e-6, "floor_patience": 3, "col_patience": 3}
+LEVERS = {"lam_tol": 2e-6, "floor_patience": 3, "col_patience": 3,
+          "w_cap": "auto"}
 LEGACY = {"lattice": "bcc_sg", "n": 120, "diel": "chiral", "eps_opt": 0}
 
 

@@ -3,8 +3,9 @@ tensors, and the generalized-problem family of ``pcx/solvers/lobpcg_rs.py``
 (``lobpcg_gep_rs``, ``lobpcg_sep_max_rs``, ``descent_gep_rs``).
 
 Port of ``pcx/solvers/lobpcg_rs.py`` (``rs_solver_parts`` composed as
-``lobpcg_sep_rs``, lines 43-605): fixed-shape masked soft locking,
-SVQB-with-dropping orthonormalization, the complex128-accumulated
+``lobpcg_sep_rs``, lines 43-605): fixed-shape masked soft locking, the
+``w_cap`` compaction of the W and P blocks, SVQB-with-dropping
+orthonormalization, the complex128-accumulated
 Rayleigh-Ritz Gram (stacked [X|W|P], or kernel K3 with ``rr_gram="pallas"``),
 HX/HP refresh, the FLOOR heuristics
 (``floor_patience``, ``col_patience``, ``lam_tol``/``lam_patience``/
@@ -34,8 +35,6 @@ from pcx_torch.solvers.lobpcg import (SolveResult, Status, _NP_REAL,
                                       lobpcg_gep)
 from pcx_torch.utils import real_dtype
 
-MAXSTAGNITER = 50   # stagnation window of the blow-up guard
-
 
 class _Tracker:
     """Host-side twin of the JAX loop state's scalar bookkeeping: residual
@@ -45,8 +44,9 @@ class _Tracker:
 
     def __init__(self, m, nev, tol, maxiter, locking, floor_patience,
                  col_patience, lam_tol, lam_patience, lam_res_tol,
-                 noise_floor, f):
+                 noise_floor, f, maxstagniter=50):
         self.f = f
+        self.maxstagniter = maxstagniter
         self.locking = locking
         self.nev, self.tol = nev, f(tol)
         self.floor_patience, self.col_patience = floor_patience, col_patience
@@ -108,7 +108,7 @@ class _Tracker:
         active = ((res > self.tol) & ~col_floored if self.locking
                   else np.ones(res.shape, bool))
 
-        ms = MAXSTAGNITER
+        ms = self.maxstagniter
         stagn_ref = np.maximum(first_rec, f(10.0) * floor_gate)
         stagn = ((it > ms and (res[0] > 1000.0 or res[0] > stagn_ref))
                  or (it > 2 * ms and res[0] > 50.0))
@@ -126,6 +126,45 @@ class _Tracker:
         return status, active
 
 
+def w_buckets(m: int) -> list:
+    """The widths of ``w_cap="auto"``: {m/4, m/2, m}, at least 1 each
+    (pcx/bandstructure.py:1454)."""
+    return sorted({max(1, m // 4), max(1, m // 2), m})
+
+
+def width_rule(w_cap, m: int, rr_gram: str = "xla"
+               ) -> Callable[[int, int], int]:
+    """``(it, n_act) -> width`` of the W and P blocks for ``w_cap``: None
+    (m), an int (clamped to [1, m], as lobpcg_rs.py:158), ``"auto"`` (the
+    smallest of ``w_buckets(m)`` that holds the ``n_act`` active columns)
+    or a callable of (it, n_act), whose width is clamped the same way.
+    Raises for any other value, and for a width below m with
+    ``rr_gram="pallas"`` (K3 takes equal-width blocks, lobpcg_rs.py:159)."""
+    def clamp(w):
+        return max(1, min(int(w), m))
+
+    if w_cap is None:
+        return lambda it, n_act: m
+    if isinstance(w_cap, str) and w_cap == "auto":
+        buckets = w_buckets(m)
+        rule = lambda it, n_act: next(b for b in buckets if n_act <= b)
+    elif callable(w_cap):
+        rule = lambda it, n_act: clamp(w_cap(it, n_act))
+    elif isinstance(w_cap, (int, np.integer)) and not isinstance(w_cap, bool):
+        wc = clamp(w_cap)
+        rule = lambda it, n_act: wc
+        if wc == m:
+            return rule
+    else:
+        raise ValueError(f"w_cap must be an int, 'auto' or a callable, "
+                         f"got {w_cap!r}")
+    if rr_gram == "pallas":
+        raise ValueError("w_cap < m is not supported with rr_gram='pallas' "
+                         "(the fused Gram kernel K3 assumes equal-width "
+                         "basis blocks)")
+    return rule
+
+
 def lobpcg_sep_rs(
     h_func: Callable[[torch.Tensor], torch.Tensor],
     p_func: Callable[[torch.Tensor], torch.Tensor],
@@ -135,11 +174,13 @@ def lobpcg_sep_rs(
     tol: float = TOL,
     maxiter: int = MAXITER,
     locking: bool = True,
+    maxstagniter: int = 50,
     ortho_passes: int = 2,
     refresh_every: int = 5,
     floor_patience: int = 9,
     use_p: bool = True,
     rp_fused=None,
+    w_cap=None,
     col_patience: int = 0,
     lam_tol: float = 0.0,
     lam_patience: int = 3,
@@ -147,6 +188,7 @@ def lobpcg_sep_rs(
     rr_gram: str = "xla",
     limit: Optional[int] = None,
     monitor: Optional[Callable[[int, np.ndarray, torch.Tensor], bool]] = None,
+    widths: Optional[list] = None,
 ) -> SolveResult:
     """Soft-locking LOBPCG for the lowest ``nev`` eigenpairs of H.
 
@@ -172,6 +214,25 @@ def lobpcg_sep_rs(
     update p = cw W + cp P, x = cx X + p with no concatenation
     (pcx/solvers/lobpcg_rs.py:496-510).
 
+    ``w_cap`` caps the width of the W and P blocks (lobpcg_rs.py:88-102,
+    364-470): each iteration the ``wc`` columns of highest residual among
+    the active ones (unconverged and not floor-locked; a stable argsort of
+    -(active * res), ties by index) are gathered to the front of (wc, D)
+    blocks, so that the preconditioner, the operator apply on W, both
+    SVQBs and the Rayleigh-Ritz run at width m + 2 wc instead of 3m; P and
+    H P stay m wide, and their gathered rows take part.  With more than wc
+    active columns the rest get no direction this iteration, but stay in X
+    and monitored.  At wc == m nothing is gathered and the computation is
+    that of ``w_cap=None``.  ``w_cap`` is an int, ``"auto"`` or a callable
+    ``(it, n_act) -> width`` (``width_rule``).  ``"auto"`` takes, each
+    iteration, the smallest of the JAX buckets {m/4, m/2, m} that holds
+    this iteration's active count: JAX's rule at ``segment_iters=1``,
+    except that its trampoline reads the count of the previous iteration
+    (its widths are separate programs, entered at segment boundaries).
+    ``widths``: a list that receives the width of every iteration.
+
+    ``maxstagniter``: the stagnation window of the blow-up guard.
+
     ``limit``: stop after this many iterations (status MAXITER) — the warm
     start cap of KPointSolver.  ``monitor(it, res, lambdas)``: called after
     each step with the iteration count, the host residuals and the device
@@ -193,6 +254,7 @@ def lobpcg_sep_rs(
     noise_floor = 30.0 * (dim ** 0.5) * float(finfo.eps)
     rr_split = rr.split_for(rdtype)
     stop = maxiter if limit is None else min(limit, maxiter)
+    width = width_rule(w_cap, m, rr_gram)
 
     def hf(a: torch.Tensor) -> torch.Tensor:
         return h_func(a.reshape((-1,) + shape[1:])).reshape(a.shape[0], -1)
@@ -227,9 +289,10 @@ def lobpcg_sep_rs(
 
     trk = _Tracker(m, nev, tol, maxiter, locking, floor_patience,
                    col_patience, lam_tol, lam_patience, lam_res_tol,
-                   noise_floor, _NP_REAL[rdtype])
+                   noise_floor, _NP_REAL[rdtype], maxstagniter)
     it = 0
     status = Status.RUNNING
+    widths = [] if widths is None else widths
     while it < stop:
         if refresh_every > 0 and it > 0 and it % refresh_every == 0:
             hx, hp = hf(x), hf(p)
@@ -249,12 +312,31 @@ def lobpcg_sep_rs(
             break
 
         # ---- step: W = P R on the active columns, P, Rayleigh-Ritz --------
-        sel = torch.as_tensor(active_h, device=dev).to(rdtype)
+        wc = width(it, int(active_h.sum()))
+        widths.append(wc)
+        if wc < m:
+            # the wc active columns of highest residual, on the host
+            # (lobpcg_rs.py:368-381): residual priority, so that a fixed
+            # cap below the active count rotates its slots
+            f = _NP_REAL[rdtype]
+            idx_h = np.argsort(-(active_h.astype(f) * res_h),
+                               kind="stable")[:wc]
+            gidx = torch.as_tensor(idx_h, device=dev)
+            sel = torch.as_tensor(active_h[idx_h], device=dev).to(rdtype)
+
+            def gather(a: torch.Tensor) -> torch.Tensor:
+                return a.index_select(0, gidx)
+        else:
+            sel = torch.as_tensor(active_h, device=dev).to(rdtype)
+
+            def gather(a: torch.Tensor) -> torch.Tensor:
+                return a
         acol = sel[:, None]
         if rp_fused is None:
-            w = p_func((acol * r).reshape(shape)).reshape(m, -1)
+            w = p_func((acol * gather(r)).reshape((wc,) + shape[1:]))
+            w = w.reshape(wc, -1)
         else:
-            w = w_raw.reshape(m, -1)
+            w = gather(w_raw.reshape(m, -1))
         w = unit_cols(acol * w)
         w, _, w_ok = rr.masked_svqb_drop(w, sel, noise_floor, against=(x,),
                                          passes=ortho_passes)
@@ -262,9 +344,11 @@ def lobpcg_sep_rs(
 
         p_act = sel * (1.0 if it > 0 and use_p else 0.0)
         pc = p_act[:, None]
-        pn = rr.colnorms(pc * p)
+        pg, hpg = gather(p), gather(hp)
+        pn = rr.colnorms(pc * pg)
         inv_pn = (1.0 / pn.clamp(min=tiny))[:, None]
-        pf, hpf = inv_pn * (pc * p), inv_pn * (pc * hp)
+        pf, hpf = inv_pn * (pc * pg), inv_pn * (pc * hpg)
+        del pg, hpg
         pf, hpf, p_ok = rr.masked_svqb_drop(
             pf, p_act, noise_floor, hblock=hpf, against=(x, w),
             h_against=(hx, hw), passes=ortho_passes)
@@ -281,7 +365,7 @@ def lobpcg_sep_rs(
         c_all = v.to(cdtype) * basis_mask[:, None]
         # The dead columns sort first: the window of m Ritz pairs starts
         # after them (clamped like lax.dynamic_slice).
-        nb = 3 * m
+        nb = m + 2 * wc
         valid = basis_mask.sum()
         start = (nb - valid).clamp(0, nb - m).long()
         idx = start + arange_m

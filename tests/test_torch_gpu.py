@@ -161,6 +161,31 @@ def test_complex64_solve_on_cuda_matches_cpu():
     np.testing.assert_allclose(r_gpu.omega_re, r_cpu.omega_re, atol=5e-5)
 
 
+@pytest.mark.parametrize("w_cap", [4, "auto"])
+def test_complex64_w_cap_solve_on_cuda_matches_cpu(w_cap):
+    """sc_curv N=16 with ``col_patience=3`` and a W/P width cap: on the card
+    K1 runs at the block width and K2's W applies at batch 3 wc (at 3 x 4
+    for the int cap), and the frequencies are the CPU solve's to 5e-5."""
+    dev = _cuda()
+    cfg = ProblemConfig(n=16, lattice="sc_curv", nev=6)
+    alpha = np.array([np.pi, 0.0, 0.0])
+    opts = {"col_patience": 3, "w_cap": w_cap}
+    n1, by_b = resid_precond.launches, dict(axis_dft.launches_by_batch)
+    r_gpu = KPointSolver(cfg, device=dev, dtype=torch.complex64,
+                         solver_opts=dict(opts)).solve(alpha)
+    assert resid_precond.launches > n1
+    launched = {b for b, c in axis_dft.launches_by_batch.items()
+                if c > by_b.get(b, 0)}
+    assert {3 * w for w in r_gpu.widths} <= launched
+    if w_cap == 4:
+        assert set(r_gpu.widths) == {4}
+    r_cpu = KPointSolver(cfg, device="cpu", dtype=torch.complex64,
+                         solver_opts=dict(opts)).solve(alpha)
+    assert r_gpu.status in (1, 5) and r_cpu.status in (1, 5)
+    assert not r_gpu.report.spurious
+    np.testing.assert_allclose(r_gpu.omega_re, r_cpu.omega_re, atol=5e-5)
+
+
 @pytest.mark.parametrize("solver", ["davidson", "mixed"])
 def test_complex64_solver_variant_on_cuda_matches_cpu(solver):
     """sc_curv N=16: Davidson (K2 in the operator, capped at 200 iterations:
