@@ -10,7 +10,11 @@ failure ends the run with a non-zero exit:
              (K1, K2) and 3xTF32 on the tensor cores (K3).
 2. build   — compile the CUDA kernels (nvcc, sm_90a, one process per
              source, all at once) from the sources.
-3. k1      — K1 resid_precond vs its plain version at m=16, N=120.
+3. k1      — K1 resid_precond vs its plain version at m=16, N=120; then
+             its lane form (the lockstep k-point batch) at 4 lanes of
+             m=16, each lane with its own symbol, vs its plain lane form,
+             lane 0 bit for bit against the one-lane launch, timed beside
+             its bound and four one-lane launches.
 4. k2      — K2 axis_dft (the mixed-radix FFT) at B=48, N=100, 120, 150,
              each direction against the einsum and complex128 (5e-6 of the
              output scale), dft3 forward against torch.fft.fftn and forward
@@ -23,11 +27,14 @@ failure ends the run with a non-zero exit:
              N=120 and B=12, 24 (the W apply under w_cap at widths 4 and
              8), each direction against the einsum and complex128, timed
              beside its bytes bound, the einsum and the one-axis
-             torch.fft.fft; and the wrapper's host cost per call.
+             torch.fft.fft; then at B=192, the operator apply of four
+             lanes of 16 columns (phase 22); and the wrapper's host cost
+             per call.
 5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
              (and both against complex128); timed beside the stacked
              ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
-             torch.cat that builds its input.
+             torch.cat that builds its input; then its lane form at 4 lanes,
+             as phase 3's, beside the stacked ``rr.gram_f64`` of the lanes.
 6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
@@ -202,6 +209,19 @@ failure ends the run with a non-zero exit:
              the stack's 0.906 s without w_cap (PR 11), each point's
              iterations at each width, and the same numbers.  K1 and K2
              must launch in each solve of (b) and in (c).
+22. lanes  — the lockstep k-point batch (``solve_batch``, ``bandgap(
+             k_batch=)``): (a) cold fcc N=120 groups of 1, 2 and 4 lanes
+             from k_path index 9, cut at 24 iterations (timed only, not
+             gated, after a 2-iteration warm-up group), with ms per
+             lane-iteration, peak memory and launches (K1's lane form and
+             K2 must launch at 2 and 4 lanes), then the device's busy share
+             under torch.profiler over 12-iteration groups of 1 and 4
+             lanes; (b) ``bandgap(k_batch=4)`` over fcc rows 9-16 with
+             rr_gram="pallas" (two groups of four lanes, the second warm
+             from the first's last block): every row CONVERGED or FLOOR,
+             max|omega - omega_re| <= 1e-3 and within 3.5e-3 of
+             output_c64/chiral/bandgap_fcc.json; K1's and K3's lane forms
+             and K2 must launch.
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
@@ -213,7 +233,8 @@ around phase 17 (K1 and K2 must launch), on rank 0 around phase 18's
 ``bandgap(mesh=)`` (K1, K2 and K3 must launch) and around phase 19 (K1,
 K2 and K3 must launch, in its sweeps (d) too), around each of phase
 20's (a), (b) and (c) (K1 and K2 must launch), and around each solve of
-phase 21 (b) and its (c) (K1 and K2 must launch).
+phase 21 (b) and its (c) (K1 and K2 must launch), and around each group
+of phase 22 (a) and its (b) (K1's and K3's lane forms and K2).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
@@ -221,8 +242,10 @@ two-grid start's of phase 16; ``launches_experiments``: phase 17's;
 ``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``;
 ``launches_library``: phase 19's; ``launches_bench``: phase 20's
 default protocol; ``launches_wcap``: phase 21 (c)'s, K2's also by batch
-in ``launches_wcap_by_batch``; K2's ``by_batch``: phase 4 at B=12, 24), the
-kernel's time beside its plain
+in ``launches_wcap_by_batch``; ``launches_lanes``: phase 22 (b)'s; K2's
+``by_batch``: phase 4 at B=12, 24, 192), then the lane forms of K1 and K3
+(``resid_precond_lanes``, ``gram9_lanes``, whose ``launches`` are phase
+22 (b)'s), the kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
 computes the same function (null where there is none).
@@ -259,6 +282,17 @@ HBM_BYTES_S = 3.35e12    # H100 SXM device-memory rate (NVIDIA data sheet)
 # 3xTF32 split of K3 runs three TF32 products per f32 product.
 TF32X3_FLOPS = 495e12 / 3
 FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
+# The wrappers of the one-point solve; their lane forms run in phase 22.
+SERIAL_KERNELS = ("resid_precond", "axis_dft", "gram9")
+# Phase 22: the lockstep k-point batch.
+LANES_K = 4                  # lanes of the K1 / K3 lane forms (phases 3, 5)
+LANE_COUNTS = (1, 2, 4)      # (a): lanes of the timed groups
+LANE_FIRST = 9               # (a): fcc k_path index of the first lane
+LANE_CUT = 24                # (a): iterations of each timed group
+LANE_PROFILED = 12           # (a): iterations of the profiled groups
+LANE_ROWS = list(range(9, 17))   # (b): bandgap(k_batch=4) rows
+LANE_BATCH = 4
+
 # Phase 4: K2 at the solver's B = 3 m, on the grids of the main path and
 # pack_cmp, then on those of phase 12, the coarse starts (N // 2) and a dense
 # stage (34 = 2 x 17); each pass within 5e-6 of the output scale.
@@ -266,8 +300,9 @@ K2_B, K2_TOL = 48, 5e-6
 K2_NS = [100, 120, 150]
 K2_SMALL_NS = [16, 32, 34, 50, 60, 75]
 # ... and at N=120 at the batches of the W apply under w_cap: B = 3 wc for
-# the buckets wc = m/4 and m/2 of m=16 (phase 21)
+# the buckets wc = m/4 and m/2 of m=16 (phase 21), and of the lanes' apply
 K2_WCAP_BS = [12, 24]
+K2_LANES_B = 3 * 16 * LANES_K   # the operator apply of 4 lanes of 16 columns
 SWEEP_INDICES = [8, 9, 10, 11]
 WARM_INDICES = (9, 10)
 PSEUDO_INDICES = [7, 8, 9]
@@ -442,6 +477,57 @@ def phase_k1(gen, dev, peak: float) -> dict:
             "share": b["bound_ms"] / ms, "library_ms": None}
 
 
+def phase_k1_lanes(gen, dev, peak: float, one_ms: float,
+                   lanes: int = LANES_K) -> dict:
+    """K1's lane form at ``lanes`` lanes of m=16, N=120, each lane with its
+    own symbol, against its plain lane form (phase 3's tolerances); lane 0
+    against the one-lane kernel bit for bit; its time beside the bound and
+    ``lanes`` times phase 3's one-lane launch."""
+    from pcx_torch.kernels.resid_precond import (resid_precond,
+                                                 resid_precond_lanes,
+                                                 resid_precond_plain)
+    m, d = 16, N ** 3
+    c = lambda *sh: torch.randn(sh, generator=gen, device=dev,
+                                dtype=torch.complex64)
+    args = (c(lanes, m, 3, d), c(lanes, m, 3, d),
+            torch.rand((lanes, m), generator=gen, device=dev) * 100.0,
+            torch.rand((lanes, 3, d), generator=gen, device=dev),
+            0.1 * c(lanes, 3, d))
+    w_k, ss_k = resid_precond_lanes(*args)
+    w_p, ss_p = resid_precond_plain(*args)
+    w_1, ss_1 = resid_precond(*(a[0] for a in args))
+    torch.cuda.synchronize()
+    err_w = max_err(w_k, w_p)
+    w_scale = float(w_p.abs().max())
+    ok = (torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6 * w_scale)
+          and torch.allclose(ss_k, ss_p, rtol=1e-5, atol=0.0))
+    same = bool(torch.equal(w_k[0], w_1) and torch.equal(ss_k[0], ss_1))
+    del w_p, ss_p, w_1, ss_1
+    ms = cuda_ms(lambda: resid_precond_lanes(*args))
+    plain_ms = cuda_ms(lambda: resid_precond_plain(*args))
+    b = bound(78.0 * lanes * m * d, sum(t.numel() * t.element_size()
+                                        for t in args + (w_k, ss_k)), peak)
+    print(f"phase k1 lanes: L={lanes} m={m} N={N} max|dw|={err_w:.3e} (max|w|"
+          f" {w_scale:.3e}); lane 0 equals the one-lane launch: {same}; "
+          f"kernel {ms:.3f} ms ({ms / lanes:.3f} ms per lane against "
+          f"{one_ms:.3f} ms for one lane) plain {plain_ms:.3f} ms bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']}) = "
+          f"{100 * b['bound_ms'] / ms:.1f}% reached; no library call",
+          flush=True)
+    if not (ok and same):
+        fail("K1's lane form disagrees with its plain lane form (phase 3's "
+             "tolerances) or, on lane 0, with the one-lane launch")
+    del args, w_k, ss_k
+    torch.cuda.empty_cache()   # the subprocess phases need the card's memory
+    return {"name": "resid_precond_lanes", "route": "cuda", "arith": FP32_FMA,
+            "source": "pcx_torch/kernels/csrc/resid_precond.cu",
+            "replaces": "pcx/operators/pallas_kernels.py:130",
+            "lanes": lanes, "max_abs_err": err_w, "ms": ms,
+            "ms_per_lane": ms / lanes, "one_lane_ms": one_ms,
+            "plain_ms": plain_ms, **b, "share": b["bound_ms"] / ms,
+            "library_ms": None}
+
+
 def _k2_pass(x, inverse: bool, scale_tol: float = K2_TOL) -> tuple:
     """One K2 pass against its plain version and against complex128:
     (max|dy|, scale, max|dy_128|, scale_128); fails past ``scale_tol``."""
@@ -491,7 +577,9 @@ def _k2_batch(gen, dev, b: int, peak: float, lib) -> dict:
     fft_ms = cuda_ms(lambda: torch.fft.fft(xp, dim=-1) if fft_dense
                      else torch.fft.fft(xp, dim=-1).contiguous())
     enc_us = lib.pcx_axis_dft_encode_us(x.data_ptr(), b, n, n, n, 1000)
-    print(f"phase k2: B={b} N={n} (the W apply at w_cap width {b // 3}) "
+    what = (f"the apply of {b // 48} lanes of 16 columns" if b > 48
+            else f"the W apply at w_cap width {b // 3}")
+    print(f"phase k2: B={b} N={n} ({what}) "
           f"max|dy|/scale {'; '.join(errs)}; kernel fwd {ms:.3f} ms inv "
           f"{ms_inv:.3f} ms, bound {bd['bound_ms']:.3f} ms "
           f"({bd['bound_by']}) = {100 * bd['bound_ms'] / ms:.1f}% / "
@@ -592,7 +680,7 @@ def phase_k2(gen, dev, peak: float) -> dict:
                    "cufft_fftn_ms": fftn_ms, "encode_us": enc_us}
         del x, xp
     rec["by_batch"] = {b: _k2_batch(gen, dev, b, peak, lib)
-                       for b in K2_WCAP_BS}
+                       for b in K2_WCAP_BS + [K2_LANES_B]}
     worst = max([worst] + [r["max_abs_err"] for r in rec["by_batch"].values()])
     worst_128 = max([worst_128] + [r["max_abs_err_c128"]
                                    for r in rec["by_batch"].values()])
@@ -652,6 +740,51 @@ def phase_k3(gen, dev, peak: float) -> dict:
             "max_abs_err": err, "max_abs_err_c128": err_k128, "ms": ms,
             "plain_ms": plain_ms, **rec, "library_ms": lib_ms,
             "library_with_cat_ms": cat_ms}
+
+
+def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
+                   lanes: int = LANES_K) -> dict:
+    """K3's lane form: six (lanes, 16, 3*120^3) blocks against the plain
+    lane form (phase 5's tolerance), lane 0 against the one-lane kernel
+    bit for bit, timed beside the bound, ``lanes`` one-lane launches and
+    the batched stacked ``rr.gram_f64`` (the rr_gram="xla" route)."""
+    from pcx_torch.kernels.gram9 import gram9, gram9_lanes, gram9_plain
+    from pcx_torch.solvers import rayleigh_ritz as rr
+    m, d = 16, 3 * N ** 3
+    blocks = [torch.randn((lanes, m, d), generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(6)]
+    t_k = gram9_lanes(*blocks)
+    t_p = gram9_plain(*blocks)
+    same = bool(torch.equal(t_k[0], gram9(*(b[0] for b in blocks))))
+    torch.cuda.synchronize()
+    err, scale = max_err(t_k, t_p), float(t_p.abs().max())
+    del t_p
+    ms = cuda_ms(lambda: gram9_lanes(*blocks))
+    plain_ms = cuda_ms(lambda: gram9_plain(*blocks))
+    s, hs = torch.cat(blocks[:3], dim=1), torch.cat(blocks[3:], dim=1)
+    lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
+    del s, hs
+    rec, text = tensor_core_record(ms, lib_ms,
+                                   8.0 * lanes * (3 * m) ** 2 * d,
+                                   8.0 * 6 * lanes * m * d
+                                   + 16.0 * lanes * (3 * m) ** 2, peak)
+    print(f"phase k3 lanes: L={lanes} m={m} D={d} max|dT|/max|T|="
+          f"{err / scale:.3e}; lane 0 equals the one-lane launch: {same}; "
+          f"kernel {ms:.3f} ms ({ms / lanes:.3f} ms per lane against "
+          f"{one_ms:.3f} ms for one lane) plain {plain_ms:.3f} ms library "
+          f"gram_f64 on the stacked lanes {lib_ms:.3f} ms; {text}",
+          flush=True)
+    if not (err <= 1e-5 * scale and same):
+        fail("K3's lane form disagrees with its plain lane form (atol "
+             "1e-5*max|T|) or, on lane 0, with the one-lane launch")
+    del blocks, t_k
+    torch.cuda.empty_cache()   # the subprocess phases need the card's memory
+    return {"name": "gram9_lanes", "route": "cuda",
+            "source": "pcx_torch/kernels/csrc/gram9.cu",
+            "replaces": "pcx/operators/pallas_kernels.py:27",
+            "lanes": lanes, "max_abs_err": err, "ms": ms,
+            "ms_per_lane": ms / lanes, "one_lane_ms": one_ms,
+            "plain_ms": plain_ms, **rec, "library_ms": lib_ms}
 
 
 def phase_operator(gen, dev, n: int = N, diel_type: str = "chiral"):
@@ -1281,7 +1414,8 @@ def phase_runner(n: int = N, golden: bool = True) -> None:
                "--lattice", "fcc", "--diel", "chiral", "--output", out,
                "--max-rounds", "1"]
         print(f"phase runner: {' '.join(cmd[1:])} (rows {RUNNER_ROWS} "
-              f"pending)", flush=True)
+              f"pending); this process holds {_reserved_gib():.2f} GiB of "
+              f"the card", flush=True)
         t0 = time.time()
         r = run_cmd(cmd, env=env)
         wall = time.time() - t0
@@ -1497,6 +1631,12 @@ def gate_record(res, golden, tag: str) -> str:
     return ""
 
 
+def _reserved_gib() -> float:
+    """Device memory this process's allocator holds, free or not."""
+    return (torch.cuda.memory_reserved() / 2**30
+            if torch.cuda.is_available() else float("nan"))
+
+
 def _peak_gib(dev) -> float:
     return (torch.cuda.max_memory_allocated(dev) / 2**30
             if dev.type == "cuda" else float("nan"))
@@ -1585,7 +1725,7 @@ def _parallel_sweep(dev, dtype, mesh, n, golden, out_dir, say) -> tuple:
         if it[0] <= 0 or (golden and not gold <= GOLDEN_TOL):
             problems.append(f"(b) row {i}: {it}, {gold:.3e} from the "
                             f"committed row")
-    if dev.type == "cuda" and not all(counts.values()):
+    if dev.type == "cuda" and not all(counts[k] for k in SERIAL_KERNELS):
         problems.append(f"(b) a kernel never launched on rank 0: {counts}")
     return problems, counts
 
@@ -2015,7 +2155,7 @@ def _lib_gyroids(dev, n: int, golden: bool, out: str) -> dict:
     after = kmod.launches()
     counts = {k: after[k] - before[k] for k in after}
     print(f"  (d) launches {counts}", flush=True)
-    if dev.type == "cuda" and not all(counts.values()):
+    if dev.type == "cuda" and not all(counts[k] for k in SERIAL_KERNELS):
         problems.append(f"a kernel never launched: {counts}")
     if problems:
         fail(f"library (d): {'; '.join(problems)}")
@@ -2417,6 +2557,135 @@ def phase_wcap(dev, n: int = N, golden: bool = True,
     return counts
 
 
+def _busy_share(fn) -> tuple:
+    """(wall ms, device ms) of fn() under torch.profiler: the device time
+    of every kernel and copy over the host wall of the call (one stream:
+    the events do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return 1e3 * wall, dev_us / 1e3
+
+
+def _lane_group(dev, n: int, lanes: int, cut: int, rr_gram: str = "xla"):
+    """A cold group of ``lanes`` fcc points from LANE_FIRST through
+    ``solve_batch``, cut at ``cut`` iterations, not validated; returns
+    (results, group wall s, lane-iterations)."""
+    from pcx_torch.bandstructure import KPointSolver
+    from pcx_torch.config import ProblemConfig
+    from pcx_torch.lattices import k_path
+    kps = KPointSolver(ProblemConfig(n=n, lattice="fcc", nev=NEV),
+                       device=dev, dtype=torch.complex64, maxiter=cut,
+                       solver_opts={"rr_gram": rr_gram})
+    alphas = [k_path("fcc")[LANE_FIRST + j] for j in range(lanes)]
+    res = kps.solve_batch(alphas, seed=LANE_FIRST, validate_result=False)
+    its = sum(r.iterations for r in res)
+    return res, res[0].wall_time * lanes, its
+
+
+def phase_lanes(dev, n: int = N, golden: bool = True,
+                counts=LANE_COUNTS, cut: int = LANE_CUT,
+                profiled: int = LANE_PROFILED, rows=LANE_ROWS,
+                k_batch: int = LANE_BATCH) -> dict:
+    """Phase 22: (a) ms per lane-iteration of cold fcc groups of 1, 2 and 4
+    lanes cut at ``cut`` iterations (timed only, not gated), each with its
+    peak device memory, then the device's busy share over groups of 1 and
+    4 lanes cut at ``profiled`` iterations; (b) ``bandgap(k_batch=4)`` over
+    ``rows`` with rr_gram="pallas" (two lockstep groups, the second warm
+    from the first's last block), each row CONVERGED or FLOOR, its
+    max|omega - omega_re| <= 1e-3 and within 3.5e-3 of its committed row.
+    K1's and K3's lane forms and K2 must launch in (b) (counts reset just
+    before it); returns the launches of (b)."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import bandgap
+    from pcx_torch.metrics import load_jsonl
+    from pcx_torch.solvers.lobpcg import Status
+    t_phase = time.time()
+    cuda = dev.type == "cuda"
+    print(f"phase lanes: (a) cold fcc N={n} groups of {list(counts)} lanes "
+          f"from k_path index {LANE_FIRST}, {cut} iterations; (b) bandgap "
+          f"k_batch={k_batch} rr_gram='pallas' rows {rows[0]}-{rows[-1]}",
+          flush=True)
+    # the first group of each route pays the libraries' first calls
+    for lanes in sorted({counts[0], counts[-1]}):
+        _lane_group(dev, n, lanes, 2)
+    per_lane = {}
+    for lanes in counts:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        res, wall, its = _lane_group(dev, n, lanes, cut)
+        got = kmod.launches()
+        per_lane[lanes] = 1e3 * wall / max(its, 1)
+        print(f"  (a) L={lanes}: {its} lane-iterations "
+              f"({[r.iterations for r in res]}) in {wall:.3f} s = "
+              f"{per_lane[lanes]:.3f} ms per lane-iteration "
+              f"({per_lane[lanes] / per_lane[counts[0]]:.3f} of L="
+              f"{counts[0]}); peak device memory {_peak_gib(dev):.2f} GiB; "
+              f"launches {got}", flush=True)
+        k1 = "resid_precond_lanes" if lanes > 1 else "resid_precond"
+        if cuda and not (got[k1] and got["axis_dft"]):
+            fail(f"lanes (a) L={lanes}: {k1} or K2 never launched: {got}")
+        del res
+    busy = {}
+    if cuda:
+        for lanes in (counts[0], counts[-1]):
+            wall_ms, dev_ms = _busy_share(
+                lambda: _lane_group(dev, n, lanes, profiled))
+            busy[lanes] = dev_ms / wall_ms
+            print(f"  (a) L={lanes} under torch.profiler, {profiled} "
+                  f"iterations: wall {wall_ms:.1f} ms, device {dev_ms:.1f} "
+                  f"ms, busy {100 * busy[lanes]:.1f}%, idle "
+                  f"{100 * (1 - busy[lanes]):.1f}%", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="pcx_lanes_") as out:
+        metrics = os.path.join(out, "metrics.jsonl")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        t0 = time.time()
+        err = bandgap(n=n, lattice="fcc", nev=NEV, dtype=torch.complex64,
+                      device=dev, output_dir=out, metrics_path=metrics,
+                      indices=rows, k_batch=k_batch, verbose=False,
+                      solver_opts={"rr_gram": "pallas"})
+        wall = time.time() - t0
+        got = kmod.launches()
+        recs = load_jsonl(metrics)
+        print(f"  (b) bandgap k_batch={k_batch}: {wall:.3f} s for "
+              f"{len(rows)} rows ({wall / len(rows):.3f} s/k-point); peak "
+              f"device memory {_peak_gib(dev):.2f} GiB; launches {got}; K2 "
+              f"by batch {kmod.k2_launches_by_batch()}", flush=True)
+        if err or len(recs) != len(rows):
+            fail(f"lanes (b): failed indices {err}, {len(recs)} records")
+        for i, rec in zip(rows, recs):
+            om, om_pnt = np.asarray(rec["omega"]), np.asarray(rec["omega_pnt"])
+            spur = float(np.abs(om_pnt - om).max())
+            gold = (float(np.abs(om - golden_row("fcc", n, i)).max())
+                    if golden else float("nan"))
+            print(f"    k={i}: status {Status(rec['status']).name} iters "
+                  f"{rec['iterations']} wall {rec['wall_s']:.3f} s "
+                  f"max|omega-omega_re| {spur:.3e} max|omega_re-golden| "
+                  f"{gold:.3e}", flush=True)
+            if rec["status"] not in (Status.CONVERGED, Status.FLOOR):
+                fail(f"lanes (b) k={i}: status {Status(rec['status']).name}")
+            if not spur <= SPURIOUS_TOL:
+                fail(f"lanes (b) k={i}: spurious ({spur:.3e})")
+            if golden and not gold <= GOLDEN_TOL:
+                fail(f"lanes (b) k={i}: {gold:.3e} from the golden row")
+    if cuda and not (got["resid_precond_lanes"] and got["gram9_lanes"]
+                     and got["axis_dft"]):
+        fail(f"lanes (b): a kernel of the lane path never launched: {got}")
+    print(f"  phase lanes: {time.time() - t_phase:.3f} s", flush=True)
+    return {**got, "ms_per_lane_iteration": per_lane, "busy_share": busy}
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -2427,6 +2696,8 @@ def main() -> None:
     gen.manual_seed(0)
     kernels = [phase_k1(gen, dev, peak), phase_k2(gen, dev, peak),
                phase_k3(gen, dev, peak)]
+    lane_kernels = [phase_k1_lanes(gen, dev, peak, kernels[0]["ms"]),
+                    phase_k3_lanes(gen, dev, peak, kernels[2]["ms"])]
     phase_operator(gen, dev)
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2541,8 +2812,13 @@ def main() -> None:
     for rec in kernels:
         rec["launches_wcap"] = counts[rec["name"]]
     kernels[1]["launches_wcap_by_batch"] = counts["axis_dft_by_batch"]
+    counts = phase_lanes(dev)
+    for rec in kernels + lane_kernels:
+        rec["launches_lanes"] = counts[rec["name"]]
+    for rec in lane_kernels:
+        rec["launches"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + lane_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -56,7 +56,8 @@ from pcx_torch import interop, lattices, validate
 from pcx_torch.config import (GAP, MAXITER, NEV, TOL, TYPE_CHIRAL,
                               ProblemConfig, block_width, set_relaxation)
 from pcx_torch.io import BandLibrary
-from pcx_torch.kernels.resid_precond import resid_precond
+from pcx_torch.kernels.resid_precond import (resid_precond,
+                                             resid_precond_lanes)
 from pcx_torch.operators import maxwell
 from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.blocks import h_block, h_block_planes
@@ -67,7 +68,7 @@ from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.davidson import davidson_sep, jd_sep
 from pcx_torch.solvers.lobpcg import (Status, descent_sep, lobpcg_sep,
                                       lobpcg_sep_mixedprecision)
-from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
+from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs, lobpcg_sep_rs_lanes
 from pcx_torch.metrics import RunLogger
 from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, generator,
                              norms, real_dtype, sqrt_robust)
@@ -451,6 +452,128 @@ class KPointSolver:
 
         return rp
 
+    def _lane_parts(self, alphas) -> tuple:
+        """The k-dependent parts of a lane solve of ``alphas``, stacked on a
+        lane axis: (symbols, refresh periods).  ``symbols(lanes)`` gives,
+        for a tuple of lane indices, the curl and penalty symbols (R, 1, 3,
+        N, N, N), the inverse-penalty symbol (R, 3, N, N, N) and the shifts
+        (R, 1, 1, 1, 1, 1) of those lanes, as a ``Symbols`` (its ``pnt``
+        unused; the shift 0.0 when every lane's is 0, as the serial apply
+        skips it); the subset of the lanes still running is selected once
+        and kept until the running set changes."""
+        per = [self.symbols_for(a) for a in alphas]
+        shifts = [s.shift for s in per]
+        refresh = [refresh_period(s.pnt) if self._scale_refresh
+                   else self.solver_opts.get("refresh_every", 5)
+                   for s in per]
+        full = (torch.stack([s.d_a for s in per])[:, None],
+                torch.stack([s.b.diag for s in per])[:, None],
+                torch.stack([s.b.sdiag for s in per])[:, None],
+                torch.stack([s.inv.diag for s in per]),
+                torch.stack([s.inv.sdiag for s in per]))
+        del per
+        cache = {}
+
+        def symbols(lanes: tuple) -> Symbols:
+            if lanes not in cache:
+                cache.clear()
+                parts = full
+                if len(lanes) < len(shifts):
+                    idx = torch.as_tensor(lanes, device=self.device)
+                    parts = tuple(a.index_select(0, idx) for a in full)
+                sh = [shifts[j] for j in lanes]
+                shift = (torch.tensor(sh, dtype=self.rdt, device=self.device
+                                      ).view(-1, 1, 1, 1, 1, 1)
+                         if any(sh) else 0.0)
+                cache[lanes] = Symbols(parts[0],
+                                       sym.HermSymbol(parts[1], parts[2]),
+                                       sym.HermSymbol(parts[3], parts[4]),
+                                       shift, 0.0)
+            return cache[lanes]
+
+        return symbols, refresh
+
+    def _rp_fused_lanes(self, symbols, m: int):
+        """The rp_fused hook of the lane solver, running K1's lane form on
+        the flat (R, m, 3N^3) blocks of the running lanes."""
+        n3 = self.cfg.n ** 3
+
+        def rp(xf, hxf, lam, lanes):
+            inv = symbols(lanes).inv
+            r = len(lanes)
+            w, sumsq = resid_precond_lanes(
+                xf.view(r, m, 3, n3), hxf.view(r, m, 3, n3), lam,
+                inv.diag.view(r, 3, n3), inv.sdiag.view(r, 3, n3))
+            return w.view(r, m, -1), sumsq
+
+        return rp
+
+    def _solve_lanes(self, alphas, x0s, seeds, validate_result: bool,
+                     raise_on_spurious: bool) -> list:
+        """One lane-batched LOBPCG of ``alphas`` (``lobpcg_sep_rs_lanes``):
+        member i from ``x0s[i]`` (fitted to the width) or cold with
+        ``seeds[i]``, each with the warm cap and doom check its ``solve``
+        would apply, then validated as ``solve`` validates.  Every member's
+        ``wall_time`` is the group's over its size."""
+        m = self.block_width(alphas[0])
+        warm = x0s is not None
+        t_x0 = time.time()
+        if warm:
+            x0 = torch.stack([self._fit(x, m, sd) if x.shape[0] != m else x
+                              for x, sd in zip(
+                                  (x.to(device=self.device, dtype=self.dtype)
+                                   for x in x0s), seeds)])
+        else:
+            x0 = torch.stack([self._x0_cold(a, m, sd)
+                              for a, sd in zip(alphas, seeds)])
+        x0_wall = 0.0
+        if not warm and self.x0_mode == "coarse":
+            self._sync()
+            x0_wall = time.time() - t_x0
+        self.last_x0_wall = x0_wall
+
+        self._sync()
+        t0 = time.time()
+        symbols, refresh = self._lane_parts(alphas)
+
+        def h_func(v, lanes):
+            sy = symbols(lanes)
+            return maxwell.ama_bb(v, sy.d_a, sy.b, self.diel, sy.shift,
+                                  self.dft)
+
+        if self.solver == "mixed":
+            def p_func(v, lanes):
+                inv = symbols(lanes).inv
+                return _p_func_bf16(sym.HermSymbol(inv.diag[:, None],
+                                                   inv.sdiag[:, None]))(v)
+        else:
+            def p_func(v, lanes):
+                inv = symbols(lanes).inv
+                return h_block(v, sym.HermSymbol(inv.diag[:, None],
+                                                 inv.sdiag[:, None]))
+
+        rp = (self._rp_fused_lanes(symbols, m)
+              if self.dtype == torch.complex64 and self.solver != "mixed"
+              else None)
+        limit = (min(self.maxiter, self.warm_maxiter)
+                 if warm and self.warm_maxiter > 0 else None)
+        opts = {k: v for k, v in self.solver_opts.items()
+                if k != "refresh_every"}
+        self.last_doom = None
+        widths = [[] for _ in alphas]
+        res = lobpcg_sep_rs_lanes(
+            h_func, p_func, x0, self.cfg.nev, tol=self.tol,
+            maxiter=self.maxiter, locking=self.locking, rp_fused=rp,
+            limit=limit, monitor=[self._monitor(warm) for _ in alphas],
+            widths=widths, refresh_every=refresh, **opts)
+        del x0
+        self._sync()
+        wall = (time.time() - t0 + x0_wall) / len(alphas)
+        _heartbeat()
+        return [self._result(a, r, wall, w, validate_result, False,
+                             raise_on_spurious)
+                for a, r, w in zip(alphas, res, widths)]
+
     def _doom(self):
         """Host-side doom check of a warm solve, called at the marks 24, 64,
         104, ...: bail (status MAXITER) when the frequency-error
@@ -569,7 +692,14 @@ class KPointSolver:
         self._sync()
         wall = time.time() - t0 + x0_wall
         _heartbeat()
+        return self._result(alpha, res, wall, widths, validate_result,
+                            verbose, raise_on_spurious)
 
+    def _result(self, alpha, res, wall: float, widths, validate_result: bool,
+                verbose: bool, raise_on_spurious: bool) -> EigenResult:
+        """The ``EigenResult`` of a solver result at ``alpha``, validated by
+        ``refine`` when ``validate_result`` and the status allows."""
+        cfg = self.cfg
         lambdas = res.lambdas.cpu().numpy().astype(float)
         status = res.status
         report = None
@@ -586,7 +716,8 @@ class KPointSolver:
                     raise_on_spurious=raise_on_spurious)
                 omega, omega_re = report.omega_pnt, report.omega_re
             else:
-                lam = lambdas[:cfg.nev] - (sy.shift if sy.shift > 0 else 0.0)
+                shift, _ = _shift_pnt(alpha, cfg.scal)
+                lam = lambdas[:cfg.nev] - (shift if shift > 0 else 0.0)
                 omega = np.array([sqrt_robust(v) * cfg.scal / (2 * np.pi)
                                   for v in lam])
                 omega_re = omega
@@ -721,15 +852,22 @@ class KPointSolver:
         ``wall_time`` is the group's wall time over its size.  A batch that
         mixes block widths raises ``ValueError``.
 
-        Without ``mesh`` the members are solved one after another on this
-        solver's device by ``solve``; JAX solves them in lockstep on one
-        chip, each lane computing what its serial solve computes.
+        Without ``mesh`` the production LOBPCG (``solver_impl="rs"``:
+        softlock, nolock, descent, mixed) solves the members in lockstep on
+        this solver's device, as JAX's vmapped ``_jitted_batch_rs`` does:
+        one lane-batched solve (``lobpcg_sep_rs_lanes``, kernels K1 and K3
+        in their lane forms, K2 over every lane's columns), each lane
+        computing what its serial solve computes, with that solve's warm
+        cap and doom check; a group of one is ``solve``.  Davidson, JD and
+        ``solver_impl="complex"`` solve the members one after another by
+        ``solve``.  A group that does not fit in device memory raises.
 
         ``mesh``: a ``pcx_torch.parallel`` mesh; every rank calls with the
         same arguments.  The group is padded to a multiple of the "k" axis
         by repeating its last member (a padding copy is not solved: it
         would repeat its original) and k row r solves and validates its
-        contiguous slice, as JAX's ``P("k")`` spec places it; the ranks of
+        contiguous slice, as JAX's ``P("k")`` spec places it, in lockstep
+        as above; the ranks of
         a row's grid axis solve the same members, and its grid rank 0
         supplies the results.  Every rank returns the group's results:
         frequencies, Ritz values, iterations, status, wall time and
@@ -757,29 +895,37 @@ class KPointSolver:
         if x0s is not None and len(x0s) < n_req:
             raise ValueError(f"{len(x0s)} start blocks for {n_req} k-points")
 
-        def run(i):
-            return self.solve(alphas[i],
-                              x0=None if x0s is None else x0s[i],
+        lanes = self.impl == "rs" and self.solver not in DAVIDSONS
+
+        def run(lo, hi):
+            """Members lo..hi-1, as solve_batch returns them."""
+            if lanes and hi - lo > 1:
+                return self._solve_lanes(
+                    alphas[lo:hi], None if x0s is None else x0s[lo:hi],
+                    [seed + i for i in range(lo, hi)], validate_result,
+                    raise_on_spurious)
+            out = [self.solve(alphas[i], x0=None if x0s is None else x0s[i],
                               seed=seed + i, validate_result=validate_result,
                               raise_on_spurious=raise_on_spurious)
+                   for i in range(lo, hi)]
+            wall = sum(r.wall_time for r in out)
+            return [dataclasses.replace(r, wall_time=wall / len(out))
+                    for r in out]
 
         if mesh is None:
-            out = [run(i) for i in range(n_req)]
-            wall = sum(r.wall_time for r in out)
-            return [dataclasses.replace(r, wall_time=wall / n_req)
-                    for r in out]
+            return run(0, n_req)
 
         per = len(alphas) // n_k
         row = mesh.get_local_rank(K_AXIS)
         lead = mesh.get_local_rank(GRID_AXIS) == 0
         results, errors, wall = {}, {}, 0.0
-        for i in range(row * per, min((row + 1) * per, n_req)):
+        lo, hi = row * per, min((row + 1) * per, n_req)
+        if lo < hi:
             try:
-                results[i] = run(i)
+                results = dict(zip(range(lo, hi), run(lo, hi)))
             except Exception as e:  # noqa: BLE001  every rank must reach
-                errors[i] = e       # the gather, which re-raises it
-                break
-            wall += results[i].wall_time
+                errors[lo] = e      # the gather, which re-raises it
+            wall = sum(r.wall_time for r in results.values())
         mine = ({i: dataclasses.replace(r, x=None)
                  for i, r in results.items()} if lead else {}, errors, wall)
         gathered = [None] * dist.get_world_size()

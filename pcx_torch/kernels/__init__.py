@@ -6,17 +6,21 @@ of ``pcx/operators/pallas_kernels.py``:
   where the TPU contracts with the dense DFT matrix);
 * K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``).
 
+K1 and K3 also have lane forms for the lockstep k-point batch, the same
+kernels over L problems in one launch: ``resid_precond_lanes`` and
+``gram9_lanes`` (K2 takes the lanes in its batch B).
+
 Each wrapper counts its launches in a plain integer attribute
 (``resid_precond.launches``), incremented only where the kernel launches;
 K2 also counts them by its batch B (``axis_dft.launches_by_batch``, 3 m
-in an operator apply on m columns).
+in an operator apply on m columns, 3 L m over L lanes).
 """
 
 from pcx_torch.kernels.axis_dft import axis_dft
-from pcx_torch.kernels.gram9 import gram9
-from pcx_torch.kernels.resid_precond import resid_precond
+from pcx_torch.kernels.gram9 import gram9, gram9_lanes
+from pcx_torch.kernels.resid_precond import resid_precond, resid_precond_lanes
 
-WRAPPERS = (resid_precond, axis_dft, gram9)
+WRAPPERS = (resid_precond, axis_dft, gram9, resid_precond_lanes, gram9_lanes)
 
 
 def reset_launches() -> None:

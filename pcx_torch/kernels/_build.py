@@ -38,11 +38,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> (argtypes, restype).  Pointers and the stream are
 # c_void_p: left undeclared, ctypes would pass them as 32-bit ints.
 SIGNATURES = {
-    "pcx_resid_precond": ([_P] * 8 + [_I, _LL, _P], _I),
+    "pcx_resid_precond": ([_P] * 8 + [_I, _I, _LL, _P], _I),
     "pcx_resid_precond_blocks": ([_LL], _I),
     "pcx_axis_dft": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "pcx_axis_dft_encode_us": ([_P] + [_I] * 5, ctypes.c_double),
-    "pcx_gram9": ([_P] * 8 + [_I, _LL, _I, _P], _I),
+    "pcx_gram9": ([_P] * 8 + [_I, _I, _LL, _I, _P], _I),
     "pcx_gram9_chunks": ([_LL, _I], _LL),
 }
 

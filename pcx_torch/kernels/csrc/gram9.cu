@@ -39,6 +39,15 @@
 // chunk ends are masked on load (zero-filled), rows past 3m too.  A second
 // kernel sums the partials of each entry in a fixed order in double.  No
 // atomics: the result is deterministic.
+//
+// Lanes (the lockstep k-point batch): six (L, m, D) blocks give L Grams
+// (L, 3m, 3m) in ONE launch of each kernel.  The lane rides on blockIdx.z
+// beside the column tile (z = lane * tiles + tile); a block offsets its six
+// row pointers by lane * m * D and writes its partials to the lane's
+// (nchunk, 3m, 3m) slab, and the reduction sums each lane's entries over
+// that lane's chunks.  The grid is sized to the resident blocks over all
+// lanes.  A partial still depends only on its lane and chunk, so each
+// lane's Gram is the one-lane launch's, which is the same kernels at L = 1.
 
 #include <cuda_runtime.h>
 
@@ -86,7 +95,11 @@ gram9_partial_kernel(Stack s, Stack hs, float2* __restrict__ partial,
   extern __shared__ __align__(16) float2 smem[];
 
   const int rows = 3 * m;
-  const int r0 = blockIdx.y * kTile, c0 = blockIdx.z * kTile;
+  const int tiles = (rows + kTile - 1) / kTile;
+  const int lane = blockIdx.z / tiles;
+  const long long loff = (long long)lane * m * D;
+  partial += (long long)lane * nchunk * rows * rows;
+  const int r0 = blockIdx.y * kTile, c0 = (blockIdx.z % tiles) * kTile;
   const int warp = threadIdx.x >> 5;
   const int wr = warp % kWarpsR, kg = warp / kWarpsR;
   const bool r_on = r0 + 16 * wr < rows;
@@ -99,7 +112,7 @@ gram9_partial_kernel(Stack s, Stack hs, float2* __restrict__ partial,
   for (int i = 0; i < kCopies; ++i) {
     const int sr = threadIdx.x / kPerRow + i * kRowStep;
     const int gr = (sr < kTile ? r0 : c0) + sr % kTile;
-    src[i] = gr < rows ? row_ptr(sr < kTile ? s : hs, gr, m, D) + col
+    src[i] = gr < rows ? row_ptr(sr < kTile ? s : hs, gr, m, D) + loff + col
                        : nullptr;
   }
   auto load = [&](int slot, long long d0, long long dend) {
@@ -219,15 +232,18 @@ gram9_partial_kernel(Stack s, Stack hs, float2* __restrict__ partial,
   tf32x3::cp_async_wait<0>();
 }
 
-// out[e] = sum over chunks of partial[chunk, e], in double.  A block owns
-// 32 consecutive entries (one per lane); warp w sums chunks w, w + 16, ...
-// in order, then lane-wise the 16 warp sums are added in order.
+// out[g, e] = sum over chunks of partial[g, chunk, e], in double, for the
+// Gram g (blockIdx.y) of each problem of the batch.  A block owns 32
+// consecutive entries (one per lane of the warp); warp w sums chunks w,
+// w + 16, ... in order, then lane-wise the 16 warp sums are added in order.
 __global__ void __launch_bounds__(32 * kReduceWarps)
 gram9_reduce_kernel(const float2* __restrict__ partial,
                     double2* __restrict__ out, int nent, int nchunk) {
   __shared__ double2 sums[kReduceWarps][32];
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int e = blockIdx.x * 32 + lane;
+  partial += (long long)blockIdx.y * nchunk * nent;
+  out += (long long)blockIdx.y * nent;
   double re = 0.0, im = 0.0;
   if (e < nent) {
     for (int c = w; c < nchunk; c += kReduceWarps) {
@@ -251,8 +267,8 @@ gram9_reduce_kernel(const float2* __restrict__ partial,
 // walks its chunks in turn), then the reduction.
 template <bool kVec>
 int launch(const Stack& s, const Stack& hs, float2* partial, double2* out,
-           int m, long long D, int chunk, long long nchunk, int tiles,
-           cudaStream_t st) {
+           int lanes, int m, long long D, int chunk, long long nchunk,
+           int tiles, cudaStream_t st) {
   auto kernel = gram9_partial_kernel<kVec>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -268,15 +284,16 @@ int launch(const Stack& s, const Stack& hs, float2* partial, double2* out,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const long long fit = (long long)sms * per_sm / ((long long)tiles * tiles);
+  const long long fit =
+      (long long)sms * per_sm / ((long long)tiles * tiles * lanes);
   const long long nblk = fit < 1 ? 1 : (fit < nchunk ? fit : nchunk);
-  kernel<<<dim3((unsigned)nblk, tiles, tiles), kThreads, kSmemBytes, st>>>(
-      s, hs, partial, m, D, chunk, nchunk);
+  kernel<<<dim3((unsigned)nblk, tiles, tiles * lanes), kThreads, kSmemBytes,
+           st>>>(s, hs, partial, m, D, chunk, nchunk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int nent = 9 * m * m;
-  gram9_reduce_kernel<<<(nent + 31) / 32, 32 * kReduceWarps, 0, st>>>(
-      partial, out, nent, (int)nchunk);
+  gram9_reduce_kernel<<<dim3((nent + 31) / 32, lanes), 32 * kReduceWarps, 0,
+                        st>>>(partial, out, nent, (int)nchunk);
   return (int)cudaGetLastError();
 }
 
@@ -287,17 +304,18 @@ extern "C" long long pcx_gram9_chunks(long long D, int chunk) {
   return (D + chunk - 1) / chunk;
 }
 
-// x, w, p, hx, hw, hp: complex64 (m, D), each contiguous; partial: complex64
-// (pcx_gram9_chunks(D, chunk), 3m, 3m); out: complex128 (3m, 3m).  Launches
-// both kernels on `stream` and returns the first cudaError_t (0 on success).
+// x, w, p, hx, hw, hp: complex64 (L, m, D), each contiguous; partial:
+// complex64 (L, pcx_gram9_chunks(D, chunk), 3m, 3m); out: complex128
+// (L, 3m, 3m); one lane is L = 1 with the lane axis dropped.  Launches both
+// kernels on `stream` and returns the first cudaError_t (0 on success).
 extern "C" int pcx_gram9(const void* x, const void* w, const void* p,
                          const void* hx, const void* hw, const void* hp,
-                         void* partial, void* out, int m, long long D,
-                         int chunk, void* stream) {
+                         void* partial, void* out, int lanes, int m,
+                         long long D, int chunk, void* stream) {
   const long long nchunk = pcx_gram9_chunks(D, chunk);
   const int tiles = (3 * m + kTile - 1) / kTile;
-  if (m <= 0 || D <= 0 || chunk <= 0 || nchunk > 0x7fffffffLL ||
-      tiles > 65535)
+  if (lanes <= 0 || m <= 0 || D <= 0 || chunk <= 0 ||
+      nchunk > 0x7fffffffLL || (long long)tiles * lanes > 65535)
     return (int)cudaErrorInvalidValue;
   const Stack s = {(const float2*)x, (const float2*)w, (const float2*)p};
   const Stack hs = {(const float2*)hx, (const float2*)hw, (const float2*)hp};
@@ -308,10 +326,11 @@ extern "C" int pcx_gram9(const void* x, const void* w, const void* p,
       reinterpret_cast<unsigned long long>(hx) |
       reinterpret_cast<unsigned long long>(hw) |
       reinterpret_cast<unsigned long long>(hp);
+  // a lane starts m * D complex past the last: 16-byte aligned when D is even
   const bool vec = D % 2 == 0 && chunk % 2 == 0 && (addr & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return vec ? launch<true>(s, hs, (float2*)partial, (double2*)out, m, D,
-                            chunk, nchunk, tiles, st)
-             : launch<false>(s, hs, (float2*)partial, (double2*)out, m, D,
-                             chunk, nchunk, tiles, st);
+  return vec ? launch<true>(s, hs, (float2*)partial, (double2*)out, lanes, m,
+                            D, chunk, nchunk, tiles, st)
+             : launch<false>(s, hs, (float2*)partial, (double2*)out, lanes, m,
+                             D, chunk, nchunk, tiles, st);
 }

@@ -20,6 +20,12 @@
 // each block writes one f32 partial per column and a second small kernel
 // reduces the partials of each column in a fixed order.  No atomics: the
 // result is deterministic.
+//
+// Lanes (the lockstep k-point batch): L problems of m columns each, x, hx
+// (L, m, 3, D), lam (L, m) and one symbol per lane (L, 3, D), run as ONE
+// launch of L*m columns on blockIdx.y; a column reads the symbol of its
+// lane (column / m).  Each column's arithmetic and its partials are those
+// of the one-lane launch, which is the same kernel at L = 1.
 
 #include <cuda_runtime.h>
 
@@ -61,13 +67,17 @@ resid_precond_kernel(const float2* __restrict__ x, const float2* __restrict__ hx
                      const float* __restrict__ lam,
                      const float* __restrict__ idiag,
                      const float2* __restrict__ isd, float2* __restrict__ w,
-                     float* __restrict__ partial, long long D, int nblk) {
-  const int col = blockIdx.y;
+                     float* __restrict__ partial, long long D, int nblk,
+                     int m) {
+  const int col = blockIdx.y;  // lane * m + column of the lane
   const float l = lam[col];
   const long long off = (long long)col * 3 * D;
   const float2* xc = x + off;
   const float2* hc = hx + off;
   float2* wc = w + off;
+  const long long soff = (long long)(col / m) * 3 * D;
+  idiag += soff;
+  isd += soff;
 
   float acc = 0.f;
   const long long start = (long long)blockIdx.x * kThreads * kItems + threadIdx.x;
@@ -115,25 +125,28 @@ extern "C" int pcx_resid_precond_blocks(long long D) {
                ((long long)kThreads * kItems));
 }
 
-// x, hx, w: complex64 (m, 3, D); lam: f32 (m,); idiag: f32 (3, D);
-// isd: complex64 (3, D); partial: f32 (m, pcx_resid_precond_blocks(D));
-// sumsq: f32 (m,).  All contiguous.  Launches both kernels on `stream` and
-// returns the first cudaError_t (0 on success).
+// x, hx, w: complex64 (L, m, 3, D); lam: f32 (L, m); idiag: f32 (L, 3, D);
+// isd: complex64 (L, 3, D); partial: f32 (L*m, pcx_resid_precond_blocks(D));
+// sumsq: f32 (L, m).  All contiguous; one lane is L = 1 with the lane axis
+// dropped.  Launches both kernels on `stream` and returns the first
+// cudaError_t (0 on success).
 extern "C" int pcx_resid_precond(const void* x, const void* hx,
                                  const void* lam, const void* idiag,
                                  const void* isd, void* w, void* partial,
-                                 void* sumsq, int m, long long D,
+                                 void* sumsq, int lanes, int m, long long D,
                                  void* stream) {
   const int nblk = pcx_resid_precond_blocks(D);
-  if (m <= 0 || m > 65535 || D <= 0) return (int)cudaErrorInvalidValue;
+  if (lanes <= 0 || m <= 0 || (long long)lanes * m > 65535 || D <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int cols = lanes * m;
   cudaStream_t s = (cudaStream_t)stream;
-  resid_precond_kernel<<<dim3(nblk, m), kThreads, 0, s>>>(
+  resid_precond_kernel<<<dim3(nblk, cols), kThreads, 0, s>>>(
       (const float2*)x, (const float2*)hx, (const float*)lam,
       (const float*)idiag, (const float2*)isd, (float2*)w, (float*)partial, D,
-      nblk);
+      nblk, m);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  column_sum_kernel<<<m, kThreads, 0, s>>>((const float*)partial,
-                                           (float*)sumsq, nblk);
+  column_sum_kernel<<<cols, kThreads, 0, s>>>((const float*)partial,
+                                              (float*)sumsq, nblk);
   return (int)cudaGetLastError();
 }

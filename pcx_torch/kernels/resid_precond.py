@@ -6,8 +6,13 @@ LOBPCG calls once per iteration through its ``rp_fused`` hook.  The CUDA
 source is ``csrc/resid_precond.cu``; its header states what bounds the
 kernel on the card and how the design answers it.
 
-``resid_precond`` takes the plain PyTorch version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises.
+``resid_precond_lanes`` is its lane form for the lockstep k-point batch
+(``KPointSolver.solve_batch``): L problems, x, hx (L, m, 3, D), lam (L, m)
+and one symbol per lane (L, 3, D), in ONE launch of the same kernel; JAX
+runs the TPU kernel's batch under ``jax.vmap``.
+
+Both wrappers take the plain PyTorch version for CPU tensors only; for CUDA
+tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -21,15 +26,17 @@ from pcx_torch.operators.blocks import h_block
 from pcx_torch.operators.symbols import HermSymbol
 
 
-def _check(x, hx, lam, inv_diag, inv_sd):
-    if x.dim() != 3 or x.shape[1] != 3:
-        raise ValueError(f"x must be (m, 3, D), got {tuple(x.shape)}")
-    m, _, d = x.shape
-    want = {"x": (x, torch.complex64, (m, 3, d)),
-            "hx": (hx, torch.complex64, (m, 3, d)),
-            "lam": (lam, torch.float32, (m,)),
-            "inv_diag": (inv_diag, torch.float32, (3, d)),
-            "inv_sd": (inv_sd, torch.complex64, (3, d))}
+def _check(x, hx, lam, inv_diag, inv_sd, lanes: bool = False):
+    lead = x.shape[:1] if lanes else ()
+    if x.dim() != 3 + len(lead) or x.shape[-2] != 3:
+        want = "(L, m, 3, D)" if lanes else "(m, 3, D)"
+        raise ValueError(f"x must be {want}, got {tuple(x.shape)}")
+    m, _, d = x.shape[-3:]
+    want = {"x": (x, torch.complex64, lead + (m, 3, d)),
+            "hx": (hx, torch.complex64, lead + (m, 3, d)),
+            "lam": (lam, torch.float32, lead + (m,)),
+            "inv_diag": (inv_diag, torch.float32, lead + (3, d)),
+            "inv_sd": (inv_sd, torch.complex64, lead + (3, d))}
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dtype} {shape}, got "
@@ -40,12 +47,34 @@ def _check(x, hx, lam, inv_diag, inv_sd):
 
 def resid_precond_plain(x, hx, lam, inv_diag, inv_sd):
     """Plain PyTorch K1: r = lam x - hx, its column sums of squares, and
-    w = P r with the Hermitian 3x3 symbol (unmasked)."""
-    m, _, d = x.shape
-    r = lam[:, None, None] * x - hx
-    sumsq = torch.view_as_real(r).square().sum(dim=(1, 2, 3))
-    sym = HermSymbol(inv_diag.view(3, 1, 1, d), inv_sd.view(3, 1, 1, d))
-    w = h_block(r.view(m, 3, 1, 1, d), sym).view(m, 3, d)
+    w = P r with the Hermitian 3x3 symbol (unmasked).  Takes the one-lane
+    shapes or the lane form's, (L, m, 3, D) with symbols (L, 3, D)."""
+    lead = x.shape[:-3]
+    m, _, d = x.shape[-3:]
+    r = lam[..., None, None] * x - hx
+    sumsq = torch.view_as_real(r).square().sum(dim=(-3, -2, -1))
+    sym = HermSymbol(inv_diag.view(lead + (1, 3, 1, 1, d)),
+                     inv_sd.view(lead + (1, 3, 1, 1, d)))
+    w = h_block(r.view(lead + (m, 3, 1, 1, d)), sym).view(x.shape)
+    return w, sumsq
+
+
+def _launch(args, lanes: int, name: str):
+    x = args[0]
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError(f"{name}: the kernel needs contiguous inputs")
+    lib = _build.load()
+    m, _, d = x.shape[-3:]
+    w = torch.empty_like(x)
+    partial = torch.empty((lanes * m, lib.pcx_resid_precond_blocks(d)),
+                          dtype=torch.float32, device=x.device)
+    sumsq = torch.empty(x.shape[:-2], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pcx_resid_precond(
+            *(t.data_ptr() for t in args), w.data_ptr(), partial.data_ptr(),
+            sumsq.data_ptr(), lanes, m, d, stream)
+    _build.check(rc, name)
     return w, sumsq
 
 
@@ -62,24 +91,31 @@ def resid_precond(x: torch.Tensor, hx: torch.Tensor, lam: torch.Tensor,
         return resid_precond_plain(x, hx, lam, inv_diag, inv_sd)
     if x.device.type != "cuda":
         raise ValueError(f"resid_precond runs on cpu or cuda, not {x.device}")
-    args = (x, hx, lam, inv_diag, inv_sd)
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("resid_precond: the kernel needs contiguous inputs")
-    lib = _build.load()
-    m, _, d = x.shape
-    w = torch.empty_like(x)
-    partial = torch.empty((m, lib.pcx_resid_precond_blocks(d)),
-                          dtype=torch.float32, device=x.device)
-    sumsq = torch.empty((m,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pcx_resid_precond(
-            x.data_ptr(), hx.data_ptr(), lam.data_ptr(), inv_diag.data_ptr(),
-            inv_sd.data_ptr(), w.data_ptr(), partial.data_ptr(),
-            sumsq.data_ptr(), m, d, stream)
-    _build.check(rc, "resid_precond")
+    out = _launch((x, hx, lam, inv_diag, inv_sd), 1, "resid_precond")
     resid_precond.launches += 1
-    return w, sumsq
+    return out
 
 
 resid_precond.launches = 0
+
+
+def resid_precond_lanes(x: torch.Tensor, hx: torch.Tensor, lam: torch.Tensor,
+                        inv_diag: torch.Tensor, inv_sd: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on L lanes in one launch: x, hx complex64 (L, m, 3, D), lam
+    float32 (L, m), inv_diag float32 (L, 3, D), inv_sd complex64 (L, 3, D),
+    lane l with its own symbol.  Returns w (L, m, 3, D) and sumsq (L, m),
+    lane l's those of ``resid_precond`` on lane l."""
+    _check(x, hx, lam, inv_diag, inv_sd, lanes=True)
+    if x.device.type == "cpu":
+        return resid_precond_plain(x, hx, lam, inv_diag, inv_sd)
+    if x.device.type != "cuda":
+        raise ValueError(f"resid_precond_lanes runs on cpu or cuda, not "
+                         f"{x.device}")
+    out = _launch((x, hx, lam, inv_diag, inv_sd), x.shape[0],
+                  "resid_precond_lanes")
+    resid_precond_lanes.launches += 1
+    return out
+
+
+resid_precond_lanes.launches = 0

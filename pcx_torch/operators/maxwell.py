@@ -44,19 +44,25 @@ def ama(x: torch.Tensor, d_a: torch.Tensor, diel,
     three axis passes (kernel K2 for complex64); without it, torch.fft (the
     complex128 refine)."""
     y = a_block(x, -d_a.conj())
+    # the lanes of a k-point batch fold into the column axis around the
+    # shared dielectric and DFT (one K2 pass over all lanes' columns)
+    lead = y.shape[:-4]
+    y = y.reshape((-1,) + y.shape[-4:])
     if dft is None:
         y = torch.fft.fftn(y, dim=_SPATIAL)
         y = torch.fft.ifftn(diel(y), dim=_SPATIAL)
     else:
         y = dft3(diel(dft3(y, dft)), dft, inverse=True)
-    return a_block(y, d_a)
+    return a_block(y.reshape(lead + y.shape[-4:]), d_a)
 
 
 def ama_bb(x: torch.Tensor, d_a: torch.Tensor, b: HermSymbol, diel,
-           shift: float = 0.0, dft: Optional[DFTMats] = None) -> torch.Tensor:
-    """A M A^H + pnt B^H B (+ shift); ``b`` already includes pnt."""
+           shift=0.0, dft: Optional[DFTMats] = None) -> torch.Tensor:
+    """A M A^H + pnt B^H B (+ shift); ``b`` already includes pnt.  Lanes of
+    a k-point batch: x (L, c, 3, N, N, N) with symbols (L, 1, 3, N, N, N)
+    and ``shift`` a real (L, 1, 1, 1, 1, 1) tensor."""
     y = ama(x, d_a, diel, dft) + h_block(x, b)
-    if shift != 0.0:
+    if isinstance(shift, torch.Tensor) or shift != 0.0:
         y = y + shift * x
     return y
 

@@ -1,6 +1,7 @@
 """Where one LOBPCG solve spends the card's time, by kernel family.
 
     python3 -m pcx_torch.profile_solve [--n 120] [--iters 16] [--index 9]
+                                       [--lanes 1]
 
 Runs a cold complex64 fcc solve at ``lattices.k_path("fcc")[index]``,
 capped at ``iters`` iterations, once per Rayleigh-Ritz route
@@ -10,7 +11,9 @@ that builds the kernels and warms the libraries.  For each route it prints
 the wall time, the device time of all kernels and copies, the device's busy
 share, ms per iteration and peak device memory, then the device time by
 kernel family; last, the per-iteration difference of each family between
-the two routes.  Needs a CUDA device.
+the two routes.  With ``--lanes L`` (L > 1) each route solves the L points
+from ``index`` on as one lockstep group (``KPointSolver.solve_batch``), and
+the per-iteration numbers are per lane-iteration.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,7 +47,16 @@ def family(name: str) -> str:
     return "other"
 
 
-def profile_route(kps, alpha, route: str, iters: int) -> dict:
+def run(kps, alphas):
+    """One solve of ``alphas`` (one point: ``solve``, else a lockstep
+    group); returns the lane-iterations."""
+    if len(alphas) == 1:
+        return kps.solve(alphas[0], seed=0, validate_result=False).iterations
+    return sum(r.iterations for r in kps.solve_batch(
+        alphas, seed=0, validate_result=False))
+
+
+def profile_route(kps, alphas, route: str, iters: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     kps.solver_opts["rr_gram"] = route
     kps.maxiter = iters
@@ -54,7 +66,7 @@ def profile_route(kps, alpha, route: str, iters: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        res = kps.solve(alpha, seed=0, validate_result=False)
+        its = run(kps, alphas)
         torch.cuda.synchronize(dev)
         wall = time.time() - t0
     by = collections.defaultdict(lambda: [0.0, 0])
@@ -64,7 +76,7 @@ def profile_route(kps, alpha, route: str, iters: int) -> dict:
         fam = by[family(evt.name)]
         fam[0] += evt.time_range.elapsed_us() / 1e3
         fam[1] += 1
-    return {"route": route, "wall_ms": 1e3 * wall, "iters": res.iterations,
+    return {"route": route, "wall_ms": 1e3 * wall, "iters": its,
             "device_ms": sum(v[0] for v in by.values()),
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "families": dict(by)}
@@ -88,6 +100,7 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=120)
     ap.add_argument("--iters", type=int, default=16)
     ap.add_argument("--index", type=int, default=9)
+    ap.add_argument("--lanes", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve needs a CUDA device")
@@ -97,14 +110,15 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     kps = KPointSolver(ProblemConfig(n=args.n, lattice="fcc", nev=10),
                        device=dev, dtype=torch.complex64, maxiter=2)
-    alpha = np.asarray(lattices.k_path("fcc")[args.index])
+    alphas = [np.asarray(lattices.k_path("fcc")[args.index + j])
+              for j in range(args.lanes)]
     for route in ("xla", "pallas"):   # build the kernels, warm the libraries
         kps.solver_opts["rr_gram"] = route
-        kps.solve(alpha, seed=0, validate_result=False)
+        run(kps, alphas)
     print(f"fcc N={args.n} k_path[{args.index}] cold complex64 solve, "
-          f"{args.iters} iterations; {torch.cuda.get_device_name(0)}",
-          flush=True)
-    runs = [profile_route(kps, alpha, route, args.iters)
+          f"{args.iters} iterations, {args.lanes} lane(s); "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    runs = [profile_route(kps, alphas, route, args.iters)
             for route in ("xla", "pallas")]
     for r in runs:
         report(r)

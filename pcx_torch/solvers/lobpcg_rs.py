@@ -18,6 +18,16 @@ status bookkeeping of the JAX while-loop runs there on numpy scalars in the
 iterate's real dtype; the active-column mask goes back as an (m,) tensor.
 The loop issues no other synchronization of its own (``torch.linalg.eigh``
 on CUDA checks its error flag on the host, which synchronizes).
+
+``lobpcg_sep_rs_lanes`` is the lockstep k-point batch, JAX's vmapped
+``_jitted_batch_rs``: L problems as lanes of one loop, one read-back and
+one batched ``eigh`` per small problem for all lanes; ``lobpcg_sep_rs`` is
+its one-lane case.  JAX's batched programs run without K1 and K2
+(``fusions=False``, pcx/bandstructure.py:569-576, 1142-1145), because
+its per-solve Pallas programs could not run under ``vmap`` on the TPU; on
+the card the kernels are the path, so the lanes run K1 (its lane form), K2
+and, with ``rr_gram="pallas"``, K3 (its lane form) wherever the serial
+solve runs them.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ import numpy as np
 import torch
 
 from pcx_torch.config import MAXITER, TOL
-from pcx_torch.kernels.gram9 import gram9
+from pcx_torch.kernels.gram9 import gram9, gram9_lanes
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.lobpcg import (SolveResult, Status, _NP_REAL,
                                       lobpcg_gep)
@@ -237,13 +247,102 @@ def lobpcg_sep_rs(
     start cap of KPointSolver.  ``monitor(it, res, lambdas)``: called after
     each step with the iteration count, the host residuals and the device
     Ritz values; returning True stops the solve (status MAXITER).
+
+    The body is ``lobpcg_sep_rs_lanes`` with one lane.
+    """
+    def one(f):
+        return lambda a, lanes: f(a[0])[None]
+
+    rp = (None if rp_fused is None else
+          lambda x, hx, lam, lanes: tuple(
+              a[None] for a in rp_fused(x[0], hx[0], lam[0])))
+    res, = lobpcg_sep_rs_lanes(
+        one(h_func), one(p_func), x0[None], nev, tol=tol, maxiter=maxiter,
+        locking=locking, maxstagniter=maxstagniter,
+        ortho_passes=ortho_passes, refresh_every=[refresh_every],
+        floor_patience=floor_patience, use_p=use_p, rp_fused=rp,
+        w_cap=w_cap, col_patience=col_patience, lam_tol=lam_tol,
+        lam_patience=lam_patience, lam_res_tol=lam_res_tol, rr_gram=rr_gram,
+        limit=[limit], monitor=[monitor],
+        widths=[[] if widths is None else widths], gram=_gram9_one)
+    return res
+
+
+def _gram9_one(*blocks: torch.Tensor) -> torch.Tensor:
+    """K3 on the one lane of (1, m, D) blocks (the serial wrapper's)."""
+    return gram9(*(a[0] for a in blocks))[None]
+
+
+def lobpcg_sep_rs_lanes(
+    h_func: Callable[[torch.Tensor, tuple], torch.Tensor],
+    p_func: Callable[[torch.Tensor, tuple], torch.Tensor],
+    x0: torch.Tensor,
+    nev: int,
+    *,
+    tol: float = TOL,
+    maxiter: int = MAXITER,
+    locking: bool = True,
+    maxstagniter: int = 50,
+    ortho_passes: int = 2,
+    refresh_every=5,
+    floor_patience: int = 9,
+    use_p: bool = True,
+    rp_fused=None,
+    w_cap=None,
+    col_patience: int = 0,
+    lam_tol: float = 0.0,
+    lam_patience: int = 3,
+    lam_res_tol: float = 1e-3,
+    rr_gram: str = "xla",
+    limit=None,
+    monitor=None,
+    widths: Optional[list] = None,
+    gram: Optional[Callable[..., torch.Tensor]] = None,
+) -> list:
+    """``lobpcg_sep_rs`` on L independent problems in lockstep: the
+    production LOBPCG with a leading lane axis, as JAX's k-point batch runs
+    it (``jax.vmap`` of ``lobpcg_sep_rs`` in pcx/bandstructure.py:1132-1159,
+    ``_jitted_batch_rs``).  Returns one ``SolveResult`` per lane, each the
+    result that lane's serial solve computes.
+
+    ``x0`` is (L, m, ...).  ``h_func(a, lanes)`` and ``p_func(a, lanes)``
+    map a block (R, c, ...) of the R running lanes ``lanes`` (a tuple of
+    lane indices, in order) to H and the preconditioner of each lane;
+    ``rp_fused(x, hx, lam, lanes)`` is the fused hook on flat (R, m, D)
+    blocks and (R, m) Ritz values (kernel K1's lane form).  ``gram``: the
+    fused Gram of ``rr_gram="pallas"`` on six (R, m, D) blocks, default
+    kernel K3's lane form ``gram9_lanes``.
+
+    Every small Hermitian problem of an iteration is one batched
+    ``torch.linalg.eigh`` over the lanes, and the iteration reads the
+    lanes' residuals and Ritz values back in one (R, 2m) transfer.  Each
+    lane keeps its own host bookkeeping (``_Tracker``), so its status,
+    floor locks and active columns are its own.  A lane that stops, by its
+    status, its ``limit`` or its ``monitor``, leaves the working batch: the
+    running lanes are selected on the lane axis and the stopped lane's
+    result is stored.  (JAX's batched while-loop computes finished lanes on
+    under a select; that is how XLA batches a loop, and is not ported.)
+
+    Per lane (a value, or a sequence of L values): ``refresh_every`` (a
+    lane refreshes H X and H P at its own period), ``limit`` and
+    ``monitor``.  ``widths``: a list of L lists, each receiving its lane's
+    width per iteration.
+
+    ``w_cap``: all lanes of an iteration take one width, the largest of the
+    lanes' widths under the rule.  An int cap is the same for every lane
+    and gathers each lane's own columns; ``"auto"`` runs every lane at the
+    largest bucket of the running lanes, which holds each lane's active
+    columns, so a lane's extra slots are masked (the buckets drop only
+    masked columns: the same Ritz pairs).  The other options are those of
+    ``lobpcg_sep_rs``, shared by the lanes.
     """
     if rr_gram not in ("xla", "pallas"):
         raise ValueError(f"unknown rr_gram {rr_gram!r}")
     if lam_tol > 0.0 and lam_patience < 1:
         raise ValueError("lam_patience must be >= 1 (the stillness counter "
                          "starts at 0, so 0 would stop unconditionally)")
-    shape = x0.shape
+    n_lanes = x0.shape[0]
+    shape = x0.shape[1:]
     m = shape[0]
     cdtype = x0.dtype
     rdtype = real_dtype(cdtype)
@@ -253,147 +352,222 @@ def lobpcg_sep_rs(
     dim = int(np.prod(shape[1:]))
     noise_floor = 30.0 * (dim ** 0.5) * float(finfo.eps)
     rr_split = rr.split_for(rdtype)
-    stop = maxiter if limit is None else min(limit, maxiter)
     width = width_rule(w_cap, m, rr_gram)
+    gram = gram9_lanes if gram is None else gram
+    refresh = _per_lane(refresh_every, n_lanes)
+    stops = [maxiter if lim is None else min(lim, maxiter)
+             for lim in _per_lane(limit, n_lanes)]
+    monitors = _per_lane(monitor, n_lanes)
+    widths = [[] for _ in range(n_lanes)] if widths is None else widths
 
-    def hf(a: torch.Tensor) -> torch.Tensor:
-        return h_func(a.reshape((-1,) + shape[1:])).reshape(a.shape[0], -1)
+    def hf(a: torch.Tensor, lanes: tuple) -> torch.Tensor:
+        r, c = a.shape[:2]
+        return h_func(a.reshape((r, c) + shape[1:]), lanes).reshape(r, c, -1)
 
     def unit_cols(a: torch.Tensor) -> torch.Tensor:
-        return rr.scale_cols(a, 1.0 / rr.colnorms(a).clamp(min=tiny))
+        return rr.scale_cols(a, 1.0 / rr.colnorms(a, lanes=True).clamp(
+            min=tiny))
 
     def masked_rr(t: torch.Tensor, mask: torch.Tensor, sentinel: float):
-        """Hermitize T on the kept rows/columns and decouple the dead ones
-        at sentinel * (||T||_F + 1) on the diagonal."""
+        """Hermitize each lane's T on its kept rows/columns and decouple the
+        dead ones at sentinel * (||T||_F + 1) on the diagonal."""
         mask64 = mask.to(torch.float64)
-        t = rr.hermitize(t) * (mask64[:, None] * mask64[None, :])
-        dead = torch.linalg.norm(t) + 1.0
-        t = t + sentinel * dead * torch.diag(1.0 - mask64)
+        t = rr.hermitize(t) * (mask64[..., :, None] * mask64[..., None, :])
+        dead = torch.linalg.vector_norm(t, dim=(-2, -1)) + 1.0
+        t = t + sentinel * dead[..., None, None] * torch.diag_embed(
+            1.0 - mask64)
         return rr.eigh_split(t, rr_split)
 
     # ---- initialization: orthonormalize + Ritz-rotate the start ----------
-    ones_m = torch.ones((m,), dtype=rdtype, device=dev)
-    xf, _, keep0 = rr.masked_svqb_drop(unit_cols(x0.reshape(m, -1)), ones_m,
-                                       noise_floor, passes=1)
-    hxf = hf(xf)
+    run = tuple(range(n_lanes))
+    ones_m = torch.ones((n_lanes, m), dtype=rdtype, device=dev)
+    xf, _, keep0 = rr.masked_svqb_drop(
+        unit_cols(x0.reshape(n_lanes, m, -1)), ones_m, noise_floor, passes=1)
+    hxf = hf(xf, run)
     # Rank-deficient starts: the dropped (zero) columns sort ABOVE the
     # spectrum, never as phantom theta=0 below it.
     theta0, v0 = masked_rr(rr.gram_f64(xf, hxf), keep0, +1.0)
-    c0 = v0.to(cdtype) * keep0[:, None]
+    c0 = v0.to(cdtype) * keep0[..., :, None]
     x, hx = rr.mix(c0, xf), rr.mix(c0, hxf)
+    del xf, hxf
     lambdas = theta0.to(rdtype)
     p, hp = torch.zeros_like(x), torch.zeros_like(x)
     arange_m = torch.arange(m, device=dev)
     # valid-column mask of X in sorted position (zero columns trail)
-    x_ok = (arange_m < keep0.sum()).to(rdtype)
+    x_ok = (arange_m < keep0.sum(-1, keepdim=True)).to(rdtype)
 
-    trk = _Tracker(m, nev, tol, maxiter, locking, floor_patience,
-                   col_patience, lam_tol, lam_patience, lam_res_tol,
-                   noise_floor, _NP_REAL[rdtype], maxstagniter)
+    f = _NP_REAL[rdtype]
+    trks = [_Tracker(m, nev, tol, maxiter, locking, floor_patience,
+                     col_patience, lam_tol, lam_patience, lam_res_tol,
+                     noise_floor, f, maxstagniter) for _ in run]
+    done = [None] * n_lanes
     it = 0
-    status = Status.RUNNING
-    widths = [] if widths is None else widths
-    while it < stop:
-        if refresh_every > 0 and it > 0 and it % refresh_every == 0:
-            hx, hp = hf(x), hf(p)
+
+    def retire(stopped: dict, extra=()):
+        """Store the lanes at rows ``stopped`` ({row: status}) and select
+        the others on the lane axis of the state and of ``extra``."""
+        nonlocal run, x, hx, p, hp, lambdas, x_ok
+        if not stopped:
+            return extra
+        last = len(stopped) == len(run)
+        for row, st in stopped.items():
+            # a lane that stops while others run keeps a copy of its block:
+            # a view would pin the whole batch's
+            xl = x[row] if last else x[row].clone()
+            done[run[row]] = (lambdas[row], xl, it, st)
+        keep = [j for j in range(len(run)) if j not in stopped]
+        run = tuple(run[j] for j in keep)
+        if not run:
+            return extra
+        idx = torch.as_tensor(keep, device=dev)
+        x, hx, p, hp, lambdas, x_ok = (a.index_select(0, idx) for a in
+                                       (x, hx, p, hp, lambdas, x_ok))
+        return tuple(None if a is None else a.index_select(0, idx)
+                     for a in extra)
+
+    while run:
+        retire({j: Status.RUNNING for j, lane in enumerate(run)
+                if it >= stops[lane]})
+        if not run:
+            break
+        due = [j for j, lane in enumerate(run) if refresh[lane] > 0
+               and it > 0 and it % refresh[lane] == 0]
+        if len(due) == len(run):
+            hx, hp = hf(x, run), hf(p, run)
+        elif due:
+            idx = torch.as_tensor(due, device=dev)
+            sub = tuple(run[j] for j in due)
+            hx.index_copy_(0, idx, hf(x.index_select(0, idx), sub))
+            hp.index_copy_(0, idx, hf(p.index_select(0, idx), sub))
+        r = w_raw = None
         if rp_fused is None:
-            r = lambdas[:, None] * x - hx
-            res = rr.colnorms(r)
+            r = lambdas[..., None] * x - hx
+            res = rr.colnorms(r, lanes=True)
         else:
-            w_raw, sumsq = rp_fused(x, hx, lambdas)
+            w_raw, sumsq = rp_fused(x, hx, lambdas, run)
             res = torch.sqrt(sumsq).to(rdtype)
-        host = torch.cat((res, lambdas)).cpu().numpy()   # the one sync
-        res_h, lam_h = host[:m], host[m:]
-        if it > 0 and np.isnan(lam_h).any():
-            status = Status.NAN        # the previous Rayleigh-Ritz failed
+        host = torch.cat((res, lambdas), dim=-1).cpu().numpy()  # the one sync
+        res_h, lam_h = host[:, :m], host[:, m:]
+        stopped, actives = {}, []
+        for j, lane in enumerate(run):
+            if it > 0 and np.isnan(lam_h[j]).any():
+                stopped[j] = Status.NAN   # the previous Rayleigh-Ritz failed
+                continue
+            st, act = trks[lane].update(it, res_h[j], lam_h[j])
+            if st != Status.RUNNING:
+                stopped[j] = st
+            else:
+                actives.append(act)
+        if stopped:
+            res_h = np.delete(res_h, list(stopped), axis=0)
+            r, w_raw = retire(stopped, (r, w_raw))
+        if not run:
             break
-        status, active_h = trk.update(it, res_h, lam_h)
-        if status != Status.RUNNING:
-            break
+        n_run = len(run)
+        active_h = np.stack(actives)
 
         # ---- step: W = P R on the active columns, P, Rayleigh-Ritz --------
-        wc = width(it, int(active_h.sum()))
-        widths.append(wc)
+        wc = max(width(it, int(a.sum())) for a in active_h)
+        for lane in run:
+            widths[lane].append(wc)
         if wc < m:
-            # the wc active columns of highest residual, on the host
+            # each lane's wc active columns of highest residual, on the host
             # (lobpcg_rs.py:368-381): residual priority, so that a fixed
             # cap below the active count rotates its slots
-            f = _NP_REAL[rdtype]
-            idx_h = np.argsort(-(active_h.astype(f) * res_h),
-                               kind="stable")[:wc]
-            gidx = torch.as_tensor(idx_h, device=dev)
-            sel = torch.as_tensor(active_h[idx_h], device=dev).to(rdtype)
+            idx_h = np.argsort(-(active_h.astype(f) * res_h), axis=1,
+                               kind="stable")[:, :wc]
+            gidx = torch.as_tensor(idx_h, device=dev)[..., None]
+            sel = torch.as_tensor(np.take_along_axis(active_h, idx_h, 1),
+                                  device=dev).to(rdtype)
 
             def gather(a: torch.Tensor) -> torch.Tensor:
-                return a.index_select(0, gidx)
+                return torch.gather(a, 1, gidx.expand(-1, -1, a.shape[-1]))
         else:
             sel = torch.as_tensor(active_h, device=dev).to(rdtype)
 
             def gather(a: torch.Tensor) -> torch.Tensor:
                 return a
-        acol = sel[:, None]
+        acol = sel[..., None]
         if rp_fused is None:
-            w = p_func((acol * gather(r)).reshape((wc,) + shape[1:]))
-            w = w.reshape(wc, -1)
+            w = p_func((acol * gather(r)).reshape((n_run, wc) + shape[1:]),
+                       run)
+            w = w.reshape(n_run, wc, -1)
         else:
-            w = gather(w_raw.reshape(m, -1))
+            w = gather(w_raw)
+        del r, w_raw
         w = unit_cols(acol * w)
         w, _, w_ok = rr.masked_svqb_drop(w, sel, noise_floor, against=(x,),
                                          passes=ortho_passes)
-        hw = hf(w)
+        hw = hf(w, run)
 
         p_act = sel * (1.0 if it > 0 and use_p else 0.0)
-        pc = p_act[:, None]
+        pc = p_act[..., None]
         pg, hpg = gather(p), gather(hp)
-        pn = rr.colnorms(pc * pg)
-        inv_pn = (1.0 / pn.clamp(min=tiny))[:, None]
+        pn = rr.colnorms(pc * pg, lanes=True)
+        inv_pn = (1.0 / pn.clamp(min=tiny))[..., None]
         pf, hpf = inv_pn * (pc * pg), inv_pn * (pc * hpg)
         del pg, hpg
         pf, hpf, p_ok = rr.masked_svqb_drop(
             pf, p_act, noise_floor, hblock=hpf, against=(x, w),
             h_against=(hx, hw), passes=ortho_passes)
 
-        basis_mask = torch.cat((x_ok, w_ok, p_ok))
+        basis_mask = torch.cat((x_ok, w_ok, p_ok), dim=-1)
         if rr_gram == "pallas":
-            t = gram9(*(a.to(torch.complex64)
-                        for a in (x, w, pf, hx, hw, hpf)))
+            t = gram(*(a.to(torch.complex64)
+                       for a in (x, w, pf, hx, hw, hpf)))
         else:
-            sf = torch.cat((x, w, pf))
-            hsf = torch.cat((hx, hw, hpf))
+            sf = torch.cat((x, w, pf), dim=-2)
+            hsf = torch.cat((hx, hw, hpf), dim=-2)
             t = rr.gram_f64(sf, hsf)
         theta_all, v = masked_rr(t, basis_mask, -1.0)
-        c_all = v.to(cdtype) * basis_mask[:, None]
+        c_all = v.to(cdtype) * basis_mask[..., :, None]
         # The dead columns sort first: the window of m Ritz pairs starts
         # after them (clamped like lax.dynamic_slice).
         nb = m + 2 * wc
-        valid = basis_mask.sum()
+        valid = basis_mask.sum(-1, keepdim=True)
         start = (nb - valid).clamp(0, nb - m).long()
         idx = start + arange_m
         x_ok = (arange_m >= (m - valid).clamp(min=0)).to(rdtype)
-        c = c_all[:, idx]
-        lambdas = theta_all.to(rdtype)[idx]
+        c = torch.gather(c_all, -1, idx[:, None, :].expand(-1, nb, -1))
+        lambdas = torch.gather(theta_all.to(rdtype), -1, idx)
         if rr_gram == "pallas":
-            cx, cw, cp = c[:m], c[m:2 * m], c[2 * m:]
+            cx, cw, cp = c[:, :m], c[:, m:2 * m], c[:, 2 * m:]
             p = rr.mix(cw, w) + rr.mix(cp, pf)
             hp = rr.mix(cw, hw) + rr.mix(cp, hpf)
             x = rr.mix(cx, x) + p
             hx = rr.mix(cx, hx) + hp
         else:
-            p, hp = rr.mix(c[m:], sf[m:]), rr.mix(c[m:], hsf[m:])
+            p, hp = rr.mix(c[:, m:], sf[:, m:]), rr.mix(c[:, m:], hsf[:, m:])
             x, hx = rr.mix(c, sf), rr.mix(c, hsf)
             del sf, hsf
         del w, hw, pf, hpf
         it += 1
-        if monitor is not None and it < stop and monitor(it, res_h, lambdas):
-            break
+        retire({j: Status.RUNNING for j, lane in enumerate(run)
+                if monitors[lane] is not None and it < stops[lane]
+                and monitors[lane](it, res_h[j], lambdas[j])})
 
-    if status == Status.RUNNING:
-        # stopped by the limit or the monitor: a NaN from the last
-        # Rayleigh-Ritz still reports NAN, as the JAX step does
-        status = (Status.NAN if bool(torch.isnan(lambdas).any())
-                  else Status.MAXITER)
-    return SolveResult(lambdas=lambdas, x=x.reshape(shape), iterations=it,
-                       status=int(status), res_history=trk.res_his)
+    out = []
+    for lane, (lam, xl, its, status) in enumerate(done):
+        if status == Status.RUNNING:
+            # stopped by the limit or the monitor: a NaN from the last
+            # Rayleigh-Ritz still reports NAN, as the JAX step does
+            status = (Status.NAN if bool(torch.isnan(lam).any())
+                      else Status.MAXITER)
+        out.append(SolveResult(lambdas=lam, x=xl.reshape(shape),
+                               iterations=its, status=int(status),
+                               res_history=trks[lane].res_his))
+    return out
+
+
+def _per_lane(value, n_lanes: int) -> list:
+    """A per-lane option as a list of ``n_lanes`` values: a sequence of
+    that length as it is, anything else repeated."""
+    if isinstance(value, (list, tuple)):
+        if len(value) != n_lanes:
+            raise ValueError(f"{len(value)} per-lane values for {n_lanes} "
+                             f"lanes")
+        return list(value)
+    return [value] * n_lanes
 
 
 def lobpcg_gep_rs(h_func, m_func, p_func, x0: torch.Tensor, nev: int, *,

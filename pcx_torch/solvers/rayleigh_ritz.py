@@ -4,6 +4,12 @@ the small Hermitian eigenproblems and pencils, and the power method.
 
 Port of ``pcx/solvers/rayleigh_ritz.py`` (and ``rs.pencil_f64_embedding``).
 Blocks of vectors are (p, D) complex tensors, the vector index first.
+The helpers of the production LOBPCG (``gram_f64``, ``gram``, ``mix``,
+``colnorms``, ``scale_cols``, ``hermitize``, ``eigh_split`` and
+``masked_svqb_drop``) also take a leading lane axis, (L, p, D) blocks with
+(L, p) masks, for the lockstep k-point batch (``lobpcg_rs.
+lobpcg_sep_rs_lanes``): each lane's result is the 2-D call's on that lane,
+and a small Hermitian problem of every lane is one ``torch.linalg.eigh``.
 
 The JAX package solves its small Hermitian problems through a real f64
 embedding with emulated-f64 repairs, because the TPU has no complex128.  On
@@ -56,11 +62,16 @@ def divisor_chunk(d: int, target: int) -> int:
 def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0,
              reduce_axis=None) -> torch.Tensor:
     """G[i, j] = <x_i, y_j> (complex128; float64 for real blocks) for
-    row-blocks x (p, D), y (q, D), as working-precision partials over
-    D-chunks summed in double: the error grows with sqrt(chunk), not
+    row-blocks x (..., p, D), y (..., q, D), as working-precision partials
+    over D-chunks summed in double: the error grows with sqrt(chunk), not
     sqrt(D) (twin of ``rayleigh_ritz.gram_f64_p``).  ``chunk=0`` picks
     ``divisor_chunk(D, GRAM_CHUNK)``; the double sum is all-reduced over
-    ``reduce_axis``."""
+    ``reduce_axis``.  Lanes (L, p, D) take one batched GEMM each: the
+    chunked view of a lane is a strided batch, that of all lanes is not,
+    and one GEMM over them would copy both operands."""
+    if x.dim() > 2:
+        return torch.stack([gram_f64(a, b, chunk, reduce_axis)
+                            for a, b in zip(x, y)])
     p, d = x.shape
     q = y.shape[0]
     chunk = chunk or divisor_chunk(d, GRAM_CHUNK)
@@ -86,16 +97,26 @@ def gram(x: torch.Tensor, y: torch.Tensor, reduce_axis=None) -> torch.Tensor:
 
 
 def mix(c: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """out_j = sum_i c[i, j] blocks_i; c (p, q), blocks (p, D) -> (q, D)
-    (twin of ``rayleigh_ritz.mix_pair``)."""
-    return torch.matmul(c.transpose(0, 1), blocks)
+    """out_j = sum_i c[i, j] blocks_i; c (..., p, q), blocks (..., p, D) ->
+    (..., q, D) (twin of ``rayleigh_ritz.mix_pair``)."""
+    return torch.matmul(c.transpose(-2, -1), blocks)
 
 
-colnorms = norms   # twin of ``rayleigh_ritz.colnorms_p``
+def colnorms(x: torch.Tensor, reduce_axis=None,
+             lanes: bool = False) -> torch.Tensor:
+    """Per-vector 2-norms of a block (m, ...) -> (m,) (twin of
+    ``rayleigh_ritz.colnorms_p``); with ``lanes``, of an (L, m, ...)
+    block -> (L, m)."""
+    if lanes:
+        return norms(x.flatten(0, 1), reduce_axis).view(x.shape[:2])
+    return norms(x, reduce_axis)
 
 
 def scale_cols(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    return x * s.reshape((-1,) + (1,) * (x.dim() - 1)).to(real_dtype(x.dtype))
+    """Each vector of x scaled by its entry of s: the shape of s is that of
+    x's leading axes ((m,) for a block, (L, m) for lanes)."""
+    return x * s.reshape(s.shape + (1,) * (x.dim() - s.dim())).to(
+        real_dtype(x.dtype))
 
 
 def split_for(rdtype: torch.dtype, svqb: bool = False) -> float:
@@ -114,11 +135,16 @@ def eigh_split(t: torch.Tensor, split: float
     diagonal perturbation of size ``split * scale`` that separates degenerate
     eigenvalues deterministically (kept in the returned eigenvalues, as in
     ``rayleigh_ritz.eigh_f64_embedding``)."""
-    p = t.shape[0]
-    scale = t.real.abs().max() + t.imag.abs().max() + 1e-30
-    pert = split * scale * torch.arange(p, dtype=torch.float64,
-                                        device=t.device) / p
-    return torch.linalg.eigh(t + torch.diag(pert).to(C128))
+    p = t.shape[-1]
+    scale = _absmax(t.real) + _absmax(t.imag) + 1e-30
+    pert = split * scale[..., None] * torch.arange(p, dtype=torch.float64,
+                                                   device=t.device) / p
+    return torch.linalg.eigh(t + torch.diag_embed(pert).to(C128))
+
+
+def _absmax(a: torch.Tensor) -> torch.Tensor:
+    """max |a| over the last two axes (the whole matrix, each lane's)."""
+    return a.abs().amax(dim=(-2, -1))
 
 
 def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
@@ -136,7 +162,8 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     never jitter-inflated), scaling the rest by 1/sqrt(eigenvalue); later
     passes are Gram Newton-Schulz steps (3 diag(mask) - G) / 2.
     ``hblock``/``h_against`` follow the same combinations.  Returns
-    (q, hq, new_mask) with the mask in the real dtype."""
+    (q, hq, new_mask) with the mask in the real dtype.  Lanes: blocks
+    (L, p, D) with an (L, p) mask, each lane with its own drop threshold."""
     cdtype = block.dtype
     rdtype = real_dtype(cdtype)
     mask = mask.to(torch.float64)
@@ -144,9 +171,9 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     lam_fac = 10.0 if rdtype == torch.float32 else 1e3
     hb = hblock
     if len(against) > 1:
-        against = (torch.cat(tuple(against)),)
+        against = (torch.cat(tuple(against), dim=-2),)
         if h_against:
-            h_against = (torch.cat(tuple(h_against)),)
+            h_against = (torch.cat(tuple(h_against), dim=-2),)
     pairs = list(zip(against, h_against or [None] * len(against)))
     for pno in range(passes):
         for base, hbase in pairs:
@@ -154,19 +181,19 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
             block = block - mix(coeff, base)
             if hb is not None and hbase is not None:
                 hb = hb - mix(coeff, hbase)
-        keep = mask[:, None] * mask[None, :]
+        keep = mask[..., :, None] * mask[..., None, :]
         g = hermitize(gram_f64(block, block, reduce_axis=reduce_axis)) * keep
         if pno == 0:
-            gscale = g.real.abs().max() + g.imag.abs().max()
+            gscale = _absmax(g.real) + _absmax(g.imag)
             lam_min = torch.clamp(lam_fac * split * gscale,
-                                  min=float(drop_tol) ** 2)
+                                  min=float(drop_tol) ** 2)[..., None]
             w, v = eigh_split(g, split)
             ok = (w > lam_min).to(torch.float64)
-            coeff = (v * (ok / torch.sqrt(torch.maximum(w, lam_min)))
-                     ).to(cdtype)
+            coeff = (v * (ok / torch.sqrt(torch.maximum(w, lam_min))
+                          )[..., None, :]).to(cdtype)
             mask = ok
         else:
-            coeff = (1.5 * torch.diag(mask) - 0.5 * g).to(cdtype)
+            coeff = (1.5 * torch.diag_embed(mask) - 0.5 * g).to(cdtype)
         block = mix(coeff, block)
         if hb is not None:
             hb = mix(coeff, hb)
