@@ -27,9 +27,10 @@ failure ends the run with a non-zero exit:
              N=120 and B=12, 24 (the W apply under w_cap at widths 4 and
              8), each direction against the einsum and complex128, timed
              beside its bytes bound, the einsum and the one-axis
-             torch.fft.fft; then at B=192, the operator apply of four
-             lanes of 16 columns (phase 22); and the wrapper's host cost
-             per call.
+             torch.fft.fft; then at B=96, 144 and 192, the operator
+             apply of two, three and four lanes of 16 columns (phases 22
+             and 23, where lanes leave a batch of four as they stop); and
+             the wrapper's host cost per call.
 5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
              (and both against complex128); timed beside the stacked
              ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
@@ -222,6 +223,21 @@ failure ends the run with a non-zero exit:
              max|omega - omega_re| <= 1e-3 and within 3.5e-3 of
              output_c64/chiral/bandgap_fcc.json; K1's and K3's lane forms
              and K2 must launch.
+23. complex-lanes — the lockstep batch of the complex LOBPCG family
+             (``solver_impl="complex"``, ``lobpcg_sep_lanes``): (a) as
+             phase 22 (a), cold fcc N=120 groups of 1, 2 and 4 lanes from
+             k_path index 9 cut at 24 iterations (timed only, after a
+             2-iteration warm-up group), with ms per lane-iteration, peak
+             memory and launches: K2 must launch at B = 3 L 16, K1 and K3
+             (either form) never, which shows the path is the complex body;
+             then the busy share over 12-iteration groups of 1 and 4 lanes;
+             (b) ``bandgap(k_batch=4, solver_kw={"solver_impl":
+             "complex"})`` resuming rows 9-12 of a copy of
+             output_c64/chiral/bandgap_fcc.json (one group of four lanes,
+             which leave the batch as they stop): every row
+             CONVERGED or FLOOR, max|omega - omega_re| <= 1e-3 and within
+             3.5e-3 of its committed row, every other row as committed; K2
+             must launch, K1 and K3 never.
 
 The kernel launch counts are reset just before phase 7 and read after
 phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
@@ -234,7 +250,8 @@ around phase 17 (K1 and K2 must launch), on rank 0 around phase 18's
 K2 and K3 must launch, in its sweeps (d) too), around each of phase
 20's (a), (b) and (c) (K1 and K2 must launch), and around each solve of
 phase 21 (b) and its (c) (K1 and K2 must launch), and around each group
-of phase 22 (a) and its (b) (K1's and K3's lane forms and K2).
+of phase 22 (a) and its (b) (K1's and K3's lane forms and K2), and
+around each group of phase 23 (a) and its (b) (K2 alone).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
@@ -242,8 +259,9 @@ two-grid start's of phase 16; ``launches_experiments``: phase 17's;
 ``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``;
 ``launches_library``: phase 19's; ``launches_bench``: phase 20's
 default protocol; ``launches_wcap``: phase 21 (c)'s, K2's also by batch
-in ``launches_wcap_by_batch``; ``launches_lanes``: phase 22 (b)'s; K2's
-``by_batch``: phase 4 at B=12, 24, 192), then the lane forms of K1 and K3
+in ``launches_wcap_by_batch``; ``launches_lanes``: phase 22 (b)'s; ``launches_complex_lanes``:
+phase 23 (b)'s; K2's
+``by_batch``: phase 4 at B=12, 24, 96, 144, 192), then the lane forms of K1 and K3
 (``resid_precond_lanes``, ``gram9_lanes``, whose ``launches`` are phase
 22 (b)'s), the kernel's time beside its plain
 version's, its bound on this card at the peak of the units it runs on
@@ -292,6 +310,7 @@ LANE_CUT = 24                # (a): iterations of each timed group
 LANE_PROFILED = 12           # (a): iterations of the profiled groups
 LANE_ROWS = list(range(9, 17))   # (b): bandgap(k_batch=4) rows
 LANE_BATCH = 4
+COMPLEX_LANE_ROWS = list(range(9, 13))   # phase 23 (b): one group of four
 
 # Phase 4: K2 at the solver's B = 3 m, on the grids of the main path and
 # pack_cmp, then on those of phase 12, the coarse starts (N // 2) and a dense
@@ -300,9 +319,10 @@ K2_B, K2_TOL = 48, 5e-6
 K2_NS = [100, 120, 150]
 K2_SMALL_NS = [16, 32, 34, 50, 60, 75]
 # ... and at N=120 at the batches of the W apply under w_cap: B = 3 wc for
-# the buckets wc = m/4 and m/2 of m=16 (phase 21), and of the lanes' apply
+# the buckets wc = m/4 and m/2 of m=16 (phase 21), and of the operator apply
+# of 2, 3 and 4 lanes of 16 columns (phases 22 and 23)
 K2_WCAP_BS = [12, 24]
-K2_LANES_B = 3 * 16 * LANES_K   # the operator apply of 4 lanes of 16 columns
+K2_LANES_BS = [3 * 16 * lanes for lanes in range(2, LANES_K + 1)]
 SWEEP_INDICES = [8, 9, 10, 11]
 WARM_INDICES = (9, 10)
 PSEUDO_INDICES = [7, 8, 9]
@@ -680,7 +700,7 @@ def phase_k2(gen, dev, peak: float) -> dict:
                    "cufft_fftn_ms": fftn_ms, "encode_us": enc_us}
         del x, xp
     rec["by_batch"] = {b: _k2_batch(gen, dev, b, peak, lib)
-                       for b in K2_WCAP_BS + [K2_LANES_B]}
+                       for b in K2_WCAP_BS + K2_LANES_BS}
     worst = max([worst] + [r["max_abs_err"] for r in rec["by_batch"].values()])
     worst_128 = max([worst_128] + [r["max_abs_err_c128"]
                                    for r in rec["by_batch"].values()])
@@ -2574,16 +2594,16 @@ def _busy_share(fn) -> tuple:
     return 1e3 * wall, dev_us / 1e3
 
 
-def _lane_group(dev, n: int, lanes: int, cut: int, rr_gram: str = "xla"):
+def _lane_group(dev, n: int, lanes: int, cut: int, **kw):
     """A cold group of ``lanes`` fcc points from LANE_FIRST through
-    ``solve_batch``, cut at ``cut`` iterations, not validated; returns
-    (results, group wall s, lane-iterations)."""
+    ``solve_batch`` of a ``KPointSolver`` with the keywords ``kw``, cut at
+    ``cut`` iterations, not validated; returns (results, group wall s,
+    lane-iterations)."""
     from pcx_torch.bandstructure import KPointSolver
     from pcx_torch.config import ProblemConfig
     from pcx_torch.lattices import k_path
     kps = KPointSolver(ProblemConfig(n=n, lattice="fcc", nev=NEV),
-                       device=dev, dtype=torch.complex64, maxiter=cut,
-                       solver_opts={"rr_gram": rr_gram})
+                       device=dev, dtype=torch.complex64, maxiter=cut, **kw)
     alphas = [k_path("fcc")[LANE_FIRST + j] for j in range(lanes)]
     res = kps.solve_batch(alphas, seed=LANE_FIRST, validate_result=False)
     its = sum(r.iterations for r in res)
@@ -2684,6 +2704,135 @@ def phase_lanes(dev, n: int = N, golden: bool = True,
         fail(f"lanes (b): a kernel of the lane path never launched: {got}")
     print(f"  phase lanes: {time.time() - t_phase:.3f} s", flush=True)
     return {**got, "ms_per_lane_iteration": per_lane, "busy_share": busy}
+
+
+def phase_complex_lanes(dev, n: int = N, golden: bool = True,
+                        counts=LANE_COUNTS, cut: int = LANE_CUT,
+                        profiled: int = LANE_PROFILED,
+                        rows=COMPLEX_LANE_ROWS,
+                        k_batch: int = LANE_BATCH) -> dict:
+    """Phase 23: the lockstep batch of the complex LOBPCG family
+    (``solver_impl="complex"``).  (a) ms per lane-iteration of cold fcc
+    groups of 1, 2 and 4 lanes cut at ``cut`` iterations (timed only, not
+    gated), each with its peak device memory and launches: K2 must launch
+    at B = 3 L m, K1 and K3 (either form) never; then the device's busy
+    share over groups of 1 and 4 lanes cut at ``profiled`` iterations.
+    (b) ``bandgap(k_batch=4)`` resuming ``rows`` of a copy of the
+    committed fcc library (one lockstep group of four lanes; a group warm
+    from the previous one's last block is phase 22 (b)'s): each row CONVERGED or FLOOR, its max|omega -
+    omega_re| <= 1e-3 and within 3.5e-3 of its committed row, every other
+    row as committed; K2 must launch, K1 and K3 never (counts reset just
+    before (b)).  Returns the launches of (b)."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.bandstructure import bandgap
+    from pcx_torch.metrics import load_jsonl
+    from pcx_torch.solvers.lobpcg import Status
+    t_phase = time.time()
+    cuda = dev.type == "cuda"
+    impl = {"solver_impl": "complex"}
+    off_path = ("resid_precond", "gram9", "resid_precond_lanes",
+                "gram9_lanes")
+    print(f"phase complex-lanes: solver_impl='complex'; (a) cold fcc N={n} "
+          f"groups of {list(counts)} lanes from k_path index {LANE_FIRST}, "
+          f"{cut} iterations; (b) bandgap k_batch={k_batch} resuming rows "
+          f"{rows[0]}-{rows[-1]}", flush=True)
+    for lanes in sorted({counts[0], counts[-1]}):
+        _lane_group(dev, n, lanes, 2, **impl)
+    per_lane, peaks = {}, {}
+    for lanes in counts:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        res, wall, its = _lane_group(dev, n, lanes, cut, **impl)
+        got, by_b = kmod.launches(), kmod.k2_launches_by_batch()
+        batch = 3 * lanes * res[0].x.shape[0]
+        per_lane[lanes] = 1e3 * wall / max(its, 1)
+        peaks[lanes] = _peak_gib(dev)
+        print(f"  (a) L={lanes}: {its} lane-iterations "
+              f"({[r.iterations for r in res]}) in {wall:.3f} s = "
+              f"{per_lane[lanes]:.3f} ms per lane-iteration "
+              f"({per_lane[lanes] / per_lane[counts[0]]:.3f} of L="
+              f"{counts[0]}); peak device memory {peaks[lanes]:.2f} GiB "
+              f"({peaks[lanes] / lanes:.2f} a lane); launches {got}; K2 by "
+              f"batch {by_b}", flush=True)
+        if cuda and not by_b.get(batch):
+            fail(f"complex-lanes (a) L={lanes}: K2 never launched at "
+                 f"B={batch}: {by_b}")
+        if any(got[k] for k in off_path):
+            fail(f"complex-lanes (a) L={lanes}: K1 or K3 launched on the "
+                 f"complex path: {got}")
+        del res
+    busy = {}
+    if cuda:
+        for lanes in (counts[0], counts[-1]):
+            wall_ms, dev_ms = _busy_share(
+                lambda: _lane_group(dev, n, lanes, profiled, **impl))
+            busy[lanes] = dev_ms / wall_ms
+            print(f"  (a) L={lanes} under torch.profiler, {profiled} "
+                  f"iterations: wall {wall_ms:.1f} ms, device {dev_ms:.1f} "
+                  f"ms, busy {100 * busy[lanes]:.1f}%, idle "
+                  f"{100 * (1 - busy[lanes]):.1f}%", flush=True)
+
+    key = f"fcc_{n}"
+    with tempfile.TemporaryDirectory(prefix="pcx_complex_lanes_") as out:
+        path = os.path.join(out, "chiral", "bandgap_fcc.json")
+        ref = reset_rows(os.path.join(HERE, "output_c64", "chiral",
+                                      "bandgap_fcc.json"), path, key, rows,
+                         src_key=f"fcc_{N}")
+        metrics = os.path.join(out, "metrics.jsonl")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kmod.reset_launches()
+        t0 = time.time()
+        err = bandgap(n=n, lattice="fcc", nev=NEV, dtype=torch.complex64,
+                      device=dev, output_dir=out, metrics_path=metrics,
+                      indices=None, k_batch=k_batch, verbose=False,
+                      solver_kw=impl)
+        wall = time.time() - t0
+        got = kmod.launches()
+        recs = load_jsonl(metrics)
+        with open(path) as f:
+            lib = json.load(f)
+        print(f"  (b) bandgap k_batch={k_batch}: {wall:.3f} s for "
+              f"{len(rows)} rows ({wall / len(rows):.3f} s/k-point); peak "
+              f"device memory {_peak_gib(dev):.2f} GiB; launches {got}; K2 "
+              f"by batch {kmod.k2_launches_by_batch()}", flush=True)
+    if err or len(recs) != len(rows):
+        fail(f"complex-lanes (b): failed indices {err}, {len(recs)} records")
+    for i, rec in zip(rows, recs):
+        om, om_pnt = np.asarray(rec["omega"]), np.asarray(rec["omega_pnt"])
+        spur = float(np.abs(om_pnt - om).max())
+        gold = (float(np.abs(om - np.asarray(ref[f"{key}_frequencies"][i])
+                             ).max()) if golden else float("nan"))
+        print(f"    k={i}: status {Status(rec['status']).name} iters "
+              f"{rec['iterations']} wall {rec['wall_s']:.3f} s "
+              f"max|omega-omega_re| {spur:.3e} max|omega_re-committed| "
+              f"{gold:.3e}", flush=True)
+        if rec["status"] not in (Status.CONVERGED, Status.FLOOR):
+            fail(f"complex-lanes (b) k={i}: status "
+                 f"{Status(rec['status']).name}")
+        if not np.array_equal(np.asarray(lib[f"{key}_frequencies"][i]), om):
+            fail(f"complex-lanes (b) k={i}: the library differs from the "
+                 f"solve")
+        if not spur <= SPURIOUS_TOL:
+            fail(f"complex-lanes (b) k={i}: spurious ({spur:.3e})")
+        if golden and not gold <= GOLDEN_TOL:
+            fail(f"complex-lanes (b) k={i}: {gold:.3e} from the committed "
+                 f"row")
+    others = [i for i in range(len(ref[f"{key}_iterations"]))
+              if i not in rows
+              and lib[f"{key}_frequencies"][i] != ref[f"{key}_frequencies"][i]]
+    if others:
+        fail(f"complex-lanes (b): rows {others} changed")
+    if cuda and not got["axis_dft"]:
+        fail(f"complex-lanes (b): K2 never launched: {got}")
+    if any(got[k] for k in off_path):
+        fail(f"complex-lanes (b): K1 or K3 launched on the complex path: "
+             f"{got}")
+    print(f"  phase complex-lanes: {time.time() - t_phase:.3f} s",
+          flush=True)
+    return {**got, "ms_per_lane_iteration": per_lane, "busy_share": busy,
+            "peak_gib": peaks}
 
 
 def main() -> None:
@@ -2817,6 +2966,9 @@ def main() -> None:
         rec["launches_lanes"] = counts[rec["name"]]
     for rec in lane_kernels:
         rec["launches"] = counts[rec["name"]]
+    counts = phase_complex_lanes(dev)
+    for rec in kernels + lane_kernels:
+        rec["launches_complex_lanes"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels + lane_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,8 +66,9 @@ from pcx_torch.operators import dielectric as diel_mod
 from pcx_torch.parallel.mesh import GRID_AXIS, K_AXIS, axis_size
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.davidson import davidson_sep, jd_sep
-from pcx_torch.solvers.lobpcg import (Status, descent_sep, lobpcg_sep,
-                                      lobpcg_sep_mixedprecision)
+from pcx_torch.solvers.lobpcg import (Status, lobpcg_sep_lanes,
+                                      lobpcg_sep_mixedprecision_lanes,
+                                      one_lane)
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs, lobpcg_sep_rs_lanes
 from pcx_torch.metrics import RunLogger
 from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, generator,
@@ -215,7 +216,8 @@ class KPointSolver:
       ``"complex"``, the complex LOBPCG family of ``solvers.lobpcg``
       (softlock, nolock, mixed with a complex64 preconditioner, descent),
       the JAX default on the CPU; one solve with no warm cap and no doom
-      check, and it refuses the pair-layout options ``LOBPCG_ONLY_OPTS``.
+      check, and it refuses the pair-layout options ``LOBPCG_ONLY_OPTS``;
+      ``solve_batch`` runs a group as lanes of ``lobpcg_sep_lanes``.
       Davidson and JD run ``solvers.davidson`` under either.
     * ``fft_mode``: the operator's DFT.  ``"matmul"`` (JAX's name) is the
       three-pass DFT of ``dft3`` (kernel K2, an FFT, in complex64), ``"fft"``
@@ -454,7 +456,8 @@ class KPointSolver:
 
     def _lane_parts(self, alphas) -> tuple:
         """The k-dependent parts of a lane solve of ``alphas``, stacked on a
-        lane axis: (symbols, refresh periods).  ``symbols(lanes)`` gives,
+        lane axis: (symbols, refresh periods; None where the solver's
+        option or default holds, as in ``solve``).  ``symbols(lanes)`` gives,
         for a tuple of lane indices, the curl and penalty symbols (R, 1, 3,
         N, N, N), the inverse-penalty symbol (R, 3, N, N, N) and the shifts
         (R, 1, 1, 1, 1, 1) of those lanes, as a ``Symbols`` (its ``pnt``
@@ -463,9 +466,8 @@ class KPointSolver:
         and kept until the running set changes."""
         per = [self.symbols_for(a) for a in alphas]
         shifts = [s.shift for s in per]
-        refresh = [refresh_period(s.pnt) if self._scale_refresh
-                   else self.solver_opts.get("refresh_every", 5)
-                   for s in per]
+        refresh = ([refresh_period(s.pnt) for s in per]
+                   if self._scale_refresh else None)
         full = (torch.stack([s.d_a for s in per])[:, None],
                 torch.stack([s.b.diag for s in per])[:, None],
                 torch.stack([s.b.sdiag for s in per])[:, None],
@@ -510,11 +512,13 @@ class KPointSolver:
 
     def _solve_lanes(self, alphas, x0s, seeds, validate_result: bool,
                      raise_on_spurious: bool) -> list:
-        """One lane-batched LOBPCG of ``alphas`` (``lobpcg_sep_rs_lanes``):
-        member i from ``x0s[i]`` (fitted to the width) or cold with
-        ``seeds[i]``, each with the warm cap and doom check its ``solve``
-        would apply, then validated as ``solve`` validates.  Every member's
-        ``wall_time`` is the group's over its size."""
+        """One lane-batched LOBPCG of ``alphas``, the body of this solver's
+        ``solve``: ``lobpcg_sep_rs_lanes`` (``solver_impl="rs"``) or the
+        complex family's ``lobpcg_sep_lanes``.  Member i starts from
+        ``x0s[i]`` (fitted to the width) or cold with ``seeds[i]``, with
+        the warm cap and doom check its ``solve`` would apply (none under
+        the complex impl), and is validated as ``solve`` validates.  Every
+        member's ``wall_time`` is the group's over its size."""
         m = self.block_width(alphas[0])
         warm = x0s is not None
         t_x0 = time.time()
@@ -541,7 +545,7 @@ class KPointSolver:
             return maxwell.ama_bb(v, sy.d_a, sy.b, self.diel, sy.shift,
                                   self.dft)
 
-        if self.solver == "mixed":
+        if self.solver == "mixed" and self.impl == "rs":
             def p_func(v, lanes):
                 inv = symbols(lanes).inv
                 return _p_func_bf16(sym.HermSymbol(inv.diag[:, None],
@@ -552,20 +556,25 @@ class KPointSolver:
                 return h_block(v, sym.HermSymbol(inv.diag[:, None],
                                                  inv.sdiag[:, None]))
 
-        rp = (self._rp_fused_lanes(symbols, m)
-              if self.dtype == torch.complex64 and self.solver != "mixed"
-              else None)
-        limit = (min(self.maxiter, self.warm_maxiter)
-                 if warm and self.warm_maxiter > 0 else None)
-        opts = {k: v for k, v in self.solver_opts.items()
-                if k != "refresh_every"}
+        opts = dict(self.solver_opts)
+        if refresh is not None:
+            opts["refresh_every"] = refresh
         self.last_doom = None
-        widths = [[] for _ in alphas]
-        res = lobpcg_sep_rs_lanes(
-            h_func, p_func, x0, self.cfg.nev, tol=self.tol,
-            maxiter=self.maxiter, locking=self.locking, rp_fused=rp,
-            limit=limit, monitor=[self._monitor(warm) for _ in alphas],
-            widths=widths, refresh_every=refresh, **opts)
+        if self.impl == "complex":
+            widths = [None for _ in alphas]
+            res = self._complex_lanes(h_func, p_func, x0, opts)
+        else:
+            rp = (self._rp_fused_lanes(symbols, m)
+                  if self.dtype == torch.complex64 and self.solver != "mixed"
+                  else None)
+            limit = (min(self.maxiter, self.warm_maxiter)
+                     if warm and self.warm_maxiter > 0 else None)
+            widths = [[] for _ in alphas]
+            res = lobpcg_sep_rs_lanes(
+                h_func, p_func, x0, self.cfg.nev, tol=self.tol,
+                maxiter=self.maxiter, locking=self.locking, rp_fused=rp,
+                limit=limit, monitor=[self._monitor(warm) for _ in alphas],
+                widths=widths, **opts)
         del x0
         self._sync()
         wall = (time.time() - t0 + x0_wall) / len(alphas)
@@ -573,6 +582,17 @@ class KPointSolver:
         return [self._result(a, r, wall, w, validate_result, False,
                              raise_on_spurious)
                 for a, r, w in zip(alphas, res, widths)]
+
+    def _complex_lanes(self, h_func, p_func, x0, opts) -> list:
+        """The complex route's solver on the lanes of ``x0`` (``solve`` runs
+        one lane): ``lobpcg_sep_lanes`` with the solver's locking, its
+        preconditioner cast to complex64 for ``mixed``; ``descent`` has
+        ``use_p=False`` in ``opts``.  No warm cap and no doom check, as the
+        JAX complex route (pcx/bandstructure.py:441-456)."""
+        fn = (lobpcg_sep_mixedprecision_lanes if self.solver == "mixed"
+              else lobpcg_sep_lanes)
+        return fn(h_func, p_func, x0, self.cfg.nev, tol=self.tol,
+                  maxiter=self.maxiter, locking=self.locking, **opts)
 
     def _doom(self):
         """Host-side doom check of a warm solve, called at the marks 24, 64,
@@ -669,13 +689,8 @@ class KPointSolver:
             res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
                      maxiter=self.maxiter, **kw)
         elif self.impl == "complex":
-            # one solve, no warm cap and no doom check, as the JAX complex
-            # route (pcx/bandstructure.py:441-456)
-            fn = {"mixed": lobpcg_sep_mixedprecision,
-                  "descent": descent_sep}.get(self.solver, lobpcg_sep)
-            kw = ({"locking": self.locking} if fn is lobpcg_sep else {})
-            res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                     maxiter=self.maxiter, **kw, **opts)
+            res, = self._complex_lanes(one_lane(h_func), one_lane(p_func),
+                                       x0[None], opts)
         else:
             # K1 computes the preconditioner in float32: off for "mixed"
             rp = (self._rp_fused(sy.inv, m)
@@ -852,15 +867,19 @@ class KPointSolver:
         ``wall_time`` is the group's wall time over its size.  A batch that
         mixes block widths raises ``ValueError``.
 
-        Without ``mesh`` the production LOBPCG (``solver_impl="rs"``:
-        softlock, nolock, descent, mixed) solves the members in lockstep on
-        this solver's device, as JAX's vmapped ``_jitted_batch_rs`` does:
-        one lane-batched solve (``lobpcg_sep_rs_lanes``, kernels K1 and K3
-        in their lane forms, K2 over every lane's columns), each lane
-        computing what its serial solve computes, with that solve's warm
-        cap and doom check; a group of one is ``solve``.  Davidson, JD and
-        ``solver_impl="complex"`` solve the members one after another by
-        ``solve``.  A group that does not fit in device memory raises.
+        Without ``mesh`` the LOBPCG solvers (softlock, nolock, descent,
+        mixed) solve the members in lockstep on this solver's device, as
+        JAX's vmapped ``_jitted_batch_rs`` and ``_jitted_batch`` do: one
+        lane-batched solve, each lane computing what its serial solve
+        computes.  ``solver_impl="rs"`` runs ``lobpcg_sep_rs_lanes``
+        (kernels K1 and K3 in their lane forms, K2 over every lane's
+        columns) with each solve's warm cap and doom check;
+        ``solver_impl="complex"`` runs ``lobpcg_sep_lanes`` (K2 over every
+        lane's columns in complex64).  A group of one is ``solve``.
+        Davidson and JD solve the members one after another by ``solve``
+        (JAX's batch programs run LOBPCG whatever the solver's name, which
+        is not ported).  A group that does not fit in device memory
+        raises.
 
         ``mesh``: a ``pcx_torch.parallel`` mesh; every rank calls with the
         same arguments.  The group is padded to a multiple of the "k" axis
@@ -895,7 +914,7 @@ class KPointSolver:
         if x0s is not None and len(x0s) < n_req:
             raise ValueError(f"{len(x0s)} start blocks for {n_req} k-points")
 
-        lanes = self.impl == "rs" and self.solver not in DAVIDSONS
+        lanes = self.solver not in DAVIDSONS
 
         def run(lo, hi):
             """Members lo..hi-1, as solve_batch returns them."""

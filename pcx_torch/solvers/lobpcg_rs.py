@@ -42,7 +42,7 @@ from pcx_torch.config import MAXITER, TOL
 from pcx_torch.kernels.gram9 import gram9, gram9_lanes
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.lobpcg import (SolveResult, Status, _NP_REAL,
-                                      lobpcg_gep)
+                                      _per_lane, lobpcg_gep)
 from pcx_torch.utils import real_dtype
 
 
@@ -557,17 +557,6 @@ def lobpcg_sep_rs_lanes(
                                iterations=its, status=int(status),
                                res_history=trks[lane].res_his))
     return out
-
-
-def _per_lane(value, n_lanes: int) -> list:
-    """A per-lane option as a list of ``n_lanes`` values: a sequence of
-    that length as it is, anything else repeated."""
-    if isinstance(value, (list, tuple)):
-        if len(value) != n_lanes:
-            raise ValueError(f"{len(value)} per-lane values for {n_lanes} "
-                             f"lanes")
-        return list(value)
-    return [value] * n_lanes
 
 
 def lobpcg_gep_rs(h_func, m_func, p_func, x0: torch.Tensor, nev: int, *,

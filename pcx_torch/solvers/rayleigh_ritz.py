@@ -4,12 +4,14 @@ the small Hermitian eigenproblems and pencils, and the power method.
 
 Port of ``pcx/solvers/rayleigh_ritz.py`` (and ``rs.pencil_f64_embedding``).
 Blocks of vectors are (p, D) complex tensors, the vector index first.
-The helpers of the production LOBPCG (``gram_f64``, ``gram``, ``mix``,
-``colnorms``, ``scale_cols``, ``hermitize``, ``eigh_split`` and
-``masked_svqb_drop``) also take a leading lane axis, (L, p, D) blocks with
-(L, p) masks, for the lockstep k-point batch (``lobpcg_rs.
-lobpcg_sep_rs_lanes``): each lane's result is the 2-D call's on that lane,
-and a small Hermitian problem of every lane is one ``torch.linalg.eigh``.
+The helpers of the LOBPCG bodies (``gram_f64``, ``gram``, ``mix``,
+``colnorms``, ``scale_cols``, ``hermitize``, ``eigh_split``,
+``masked_svqb_drop``, and for the complex family ``masked_loewdin``,
+``rayleigh_ritz`` and ``masked_mgs``) also take a leading lane axis,
+(L, p, D) blocks with (L, p) masks, for the lockstep k-point batch
+(``lobpcg_rs.lobpcg_sep_rs_lanes``, ``lobpcg.lobpcg_sep_lanes``): each
+lane's result is the 2-D call's on that lane, and a small Hermitian
+problem or Cholesky factor of every lane is one ``torch.linalg`` call.
 
 The JAX package solves its small Hermitian problems through a real f64
 embedding with emulated-f64 repairs, because the TPU has no complex128.  On
@@ -276,7 +278,7 @@ def eigh_pencil_whiten(t: torch.Tensor, g: torch.Tensor, split: float = 1e-10
 def rayleigh_ritz(s: torch.Tensor, hs: torch.Tensor, reduce_axis=None):
     """Plain Rayleigh-Ritz on a row-block: Ritz values and vectors of H in
     span(s) (reference: rayleigh_ritz_chol_sep, orthogonalization.py:
-    140-154)."""
+    140-154).  Lanes: (L, p, D) blocks, one batched Cholesky and eigh."""
     return eigh_pencil(hermitize(gram(s, hs, reduce_axis)),
                        hermitize(gram(s, s, reduce_axis)))
 
@@ -287,17 +289,20 @@ def masked_loewdin(block: torch.Tensor, mask: torch.Tensor, jitter: float,
     """Loewdin (symmetric) orthonormalization of the active rows: Q =
     mix(S, B), S = (G + pad)^(-1/2) from the complex128-accumulated Gram,
     its eigenvalues clamped at ``jitter`` times the largest.  Masked-out
-    rows must be zero; the padded Gram diagonal keeps them zero."""
+    rows must be zero; the padded Gram diagonal keeps them zero.  Lanes:
+    (L, p, D) blocks with an (L, p) mask, each lane clamped at its own
+    largest eigenvalue."""
     mask64 = mask.to(torch.float64)
-    keep = mask64[:, None] * mask64[None, :]
-    dead = torch.diag(1.0 - mask64)
-    rmask = mask.to(real_dtype(block.dtype))[:, None]
+    keep = mask64[..., :, None] * mask64[..., None, :]
+    dead = torch.diag_embed(1.0 - mask64)
+    rmask = mask.to(real_dtype(block.dtype))[..., None]
     for _ in range(passes):
         g = (hermitize(gram_f64(block, block, reduce_axis=reduce_axis))
              * keep + dead)
         w, v = eigh_split(g, 1e-10)
-        w = torch.maximum(w, jitter * w[-1].clamp(min=1e-30))
-        s = ((v * (1.0 / torch.sqrt(w))) @ v.mH).to(block.dtype)
+        w = torch.maximum(w, jitter * w[..., -1:].clamp(min=1e-30))
+        s = ((v * (1.0 / torch.sqrt(w))[..., None, :]) @ v.mH).to(
+            block.dtype)
         block = mix(s, block) * rmask
         if hblock is not None:
             hblock = mix(s, hblock) * rmask
@@ -314,8 +319,10 @@ def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
     base, then orthonormalized one after another; a row whose residual
     norm falls below ``drop_tol`` is zeroed and masked out.  ``hblock``/
     ``h_against`` follow the same combinations.  Returns (q, hq, mask)
-    with the mask in the real dtype."""
-    m = block.shape[0]
+    with the mask in the real dtype.  Lanes: (L, p, D) blocks with an
+    (L, p) mask; row i of every lane is taken in one step."""
+    m = block.shape[-2]
+    lanes = block.dim() > 2
     rdtype = real_dtype(block.dtype)
     tiny = torch.finfo(rdtype).tiny
     msk = mask.to(rdtype).clone()
@@ -329,21 +336,21 @@ def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
     hq = hblock.clone() if hblock is not None else None
     idx = torch.arange(m, device=block.device)
     for i in range(m):
-        col = q[i:i + 1]
-        hcol = hq[i:i + 1] if hq is not None else None
-        wsel = ((idx < i).to(rdtype) * msk)[:, None]
+        col = q[..., i:i + 1, :]
+        hcol = hq[..., i:i + 1, :] if hq is not None else None
+        wsel = ((idx < i).to(rdtype) * msk)[..., None]
         for _ in range(passes):
             coeff = gram(q, col, reduce_axis) * wsel
             col = col - mix(coeff, q)
             if hq is not None:
                 hcol = hcol - mix(coeff, hq)
-        nrm = colnorms(col, reduce_axis)[0]
-        ok = msk[i] * (nrm > drop_tol).to(rdtype)
-        scale = ok / nrm.clamp(min=tiny)
-        q[i] = col[0] * scale
+        nrm = colnorms(col, reduce_axis, lanes=lanes)[..., 0]
+        ok = msk[..., i] * (nrm > drop_tol).to(rdtype)
+        scale = (ok / nrm.clamp(min=tiny))[..., None]
+        q[..., i, :] = col[..., 0, :] * scale
         if hq is not None:
-            hq[i] = hcol[0] * scale
-        msk[i] = ok
+            hq[..., i, :] = hcol[..., 0, :] * scale
+        msk[..., i] = ok
     return q, hq, msk
 
 

@@ -595,3 +595,30 @@ def test_solve_batch_lanes_on_cuda_match_serial():
         assert r.status in (1, 5) and s.status in (1, 5)
         assert not r.report.spurious
         np.testing.assert_allclose(r.omega_re, s.omega_re, atol=1e-4)
+
+
+def test_complex_impl_solve_batch_lanes_on_cuda_match_serial():
+    """``solver_impl="complex"``: a lane-batched complex64 solve of three
+    fcc points at N=32 on the card (``lobpcg_sep_lanes``, K2 over all
+    lanes' columns, no K1 or K3) against the same points solved one by
+    one on the card from the same starts: each member CONVERGED or FLOOR,
+    not spurious, omega_re within 1e-4 of the serial solve."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.lattices import k_path
+    dev = _cuda()
+    alphas = [k_path("fcc")[i] for i in (9, 10, 11)]
+    kps = KPointSolver(ProblemConfig(n=32, lattice="fcc", nev=6),
+                       device=dev, dtype=torch.complex64,
+                       solver_impl="complex")
+    m = kps.block_width(alphas[0])
+    n0 = kmod.launches()
+    b0 = dict(axis_dft.launches_by_batch)
+    res = kps.solve_batch(alphas, seed=4)
+    n1 = kmod.launches()
+    assert axis_dft.launches_by_batch.get(9 * m, 0) > b0.get(9 * m, 0)
+    assert all(n1[k] == n0[k] for k in n0 if k != "axis_dft")
+    for i, (a, r) in enumerate(zip(alphas, res)):
+        s = kps.solve(a, seed=4 + i)
+        assert r.status in (1, 5) and s.status in (1, 5)
+        assert not r.report.spurious
+        np.testing.assert_allclose(r.omega_re, s.omega_re, atol=1e-4)

@@ -280,8 +280,9 @@ def test_solve_batch_matches_jax_batch(monkeypatch, diel_type, eps_opt):
 
 def test_solve_batch_paths(monkeypatch):
     """Which path a group takes: complex64 softlock with rr_gram="pallas"
-    runs one lane solve through K1's and K3's lane forms; a group of one,
-    Davidson and solver_impl="complex" run ``solve`` per member; a group
+    runs one lane solve through K1's and K3's lane forms; a group of one
+    runs ``solve``; solver_impl="complex" runs one ``lobpcg_sep_lanes``;
+    Davidson and JD, under either impl, run ``solve`` per member; a group
     that mixes block widths raises."""
     from pcx.lattices import k_path
     alphas = [k_path("fcc")[i] for i in FCC_ROWS]
@@ -314,11 +315,23 @@ def test_solve_batch_paths(monkeypatch):
     assert not any(r.report.spurious for r in res)
     kps.solve_batch(alphas[:1])
     assert calls["solve"] == 1
-    for kw in ({"solver": "davidson"}, {"solver_impl": "complex"}):
+    for kw in ({"solver": "davidson"}, {"solver": "jd"},
+               {"solver": "jd", "solver_impl": "complex"}):
         calls["solve"] = 0
         bs.KPointSolver(cfg, device="cpu", dtype=torch.complex128,
                         tol=1e-6, **kw).solve_batch(alphas[:2])
         assert calls["solve"] == 2, kw
+    lanes, complex_lanes = [], bs.lobpcg_sep_lanes
+
+    def complex_spy(h, p, x0, *a, **k):
+        lanes.append(x0.shape[0])
+        return complex_lanes(h, p, x0, *a, **k)
+
+    monkeypatch.setattr(bs, "lobpcg_sep_lanes", complex_spy)
+    calls["solve"] = 0
+    bs.KPointSolver(cfg, device="cpu", dtype=torch.complex128, tol=1e-6,
+                    solver_impl="complex").solve_batch(alphas[:2])
+    assert calls["solve"] == 0 and lanes == [2]
     # every k-point of the paths has one width (config.set_relaxation's
     # ratio is constant): a solver that gives two widths stands in
     monkeypatch.setattr(kps, "block_width", lambda a: 6 if a[0] > 1 else 5)

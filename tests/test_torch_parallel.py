@@ -182,6 +182,11 @@ def _body_solve_batch(rank, world, out_dir, alphas):
         res = s.solve_batch(group, seed=0, mesh=mesh)
         out[name] = [(r.omega_re, r.iterations, r.status, r.wall_time,
                       None if r.x is None else r.x.numpy()) for r in res]
+    sc = KPointSolver(ProblemConfig(n=N, lattice="sc_flat1", nev=NEV),
+                      device="cpu", dtype=torch.complex128,
+                      solver_impl="complex")
+    out["complex"] = [(r.omega_re, r.status)
+                      for r in sc.solve_batch(alphas, seed=0, mesh=mesh)]
     return out
 
 
@@ -383,7 +388,9 @@ def test_solve_batch_mesh_matches_serial(tmp_path):
     """solve_batch(mesh=) on a two-rank k axis, a full and a ragged group:
     every member within 1e-8 of the port's serial solve from the same seed
     (pcx's bound) and within 1e-9 of pcx's serial omega_re; x stays on its
-    rank except the last member's, which every rank holds."""
+    rank except the last member's, which every rank holds.  The full group
+    again with solver_impl="complex" (two lanes of lobpcg_sep_lanes per
+    rank): within 1e-8 of the port's serial complex solves."""
     import jax.numpy as jnp
     from pcx import lattices as jlat
     from pcx.bandstructure import KPointSolver as JaxSolver
@@ -415,6 +422,15 @@ def test_solve_batch_mesh_matches_serial(tmp_path):
                 assert (x is not None) == held, (name, rank, i)
         np.testing.assert_array_equal(outs[0][name][-1][4],
                                       outs[1][name][-1][4])
+    sc = KPointSolver(ProblemConfig(n=N, lattice="sc_flat1", nev=NEV),
+                      device="cpu", dtype=torch.complex128,
+                      solver_impl="complex")
+    for i, a in enumerate(alphas):
+        want = sc.solve(a, seed=i)
+        for out in outs:
+            om, status = out["complex"][i]
+            assert status == want.status
+            np.testing.assert_allclose(om, want.omega_re, rtol=0, atol=1e-8)
 
 
 @pytest.fixture(scope="module")
