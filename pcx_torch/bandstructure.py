@@ -52,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pcx_torch import interop, lattices, validate
+from pcx_torch import interop, lattices, tracing, validate
 from pcx_torch.config import (GAP, MAXITER, NEV, TOL, TYPE_CHIRAL,
                               ProblemConfig, block_width, set_relaxation)
 from pcx_torch.io import BandLibrary
@@ -372,6 +372,7 @@ class KPointSolver:
         (_, rlx), _ = set_relaxation(alpha)
         return block_width(self.cfg.nev, rlx)
 
+    @tracing.spanned("pcx.symbols")
     def symbols_for(self, alpha) -> Symbols:
         """Curl, penalty and preconditioner symbols of one k-point, built on
         the device in complex128 from the 1-D parts and cast to the iterate
@@ -510,6 +511,7 @@ class KPointSolver:
 
         return rp
 
+    @tracing.spanned("pcx.solve")
     def _solve_lanes(self, alphas, x0s, seeds, validate_result: bool,
                      raise_on_spurious: bool) -> list:
         """One lane-batched LOBPCG of ``alphas``, the body of this solver's
@@ -560,21 +562,22 @@ class KPointSolver:
         if refresh is not None:
             opts["refresh_every"] = refresh
         self.last_doom = None
-        if self.impl == "complex":
-            widths = [None for _ in alphas]
-            res = self._complex_lanes(h_func, p_func, x0, opts)
-        else:
-            rp = (self._rp_fused_lanes(symbols, m)
-                  if self.dtype == torch.complex64 and self.solver != "mixed"
-                  else None)
-            limit = (min(self.maxiter, self.warm_maxiter)
-                     if warm and self.warm_maxiter > 0 else None)
-            widths = [[] for _ in alphas]
-            res = lobpcg_sep_rs_lanes(
-                h_func, p_func, x0, self.cfg.nev, tol=self.tol,
-                maxiter=self.maxiter, locking=self.locking, rp_fused=rp,
-                limit=limit, monitor=[self._monitor(warm) for _ in alphas],
-                widths=widths, **opts)
+        with tracing.span("pcx.lobpcg"):
+            if self.impl == "complex":
+                widths = [None for _ in alphas]
+                res = self._complex_lanes(h_func, p_func, x0, opts)
+            else:
+                rp = (self._rp_fused_lanes(symbols, m)
+                      if self.dtype == torch.complex64
+                      and self.solver != "mixed" else None)
+                limit = (min(self.maxiter, self.warm_maxiter)
+                         if warm and self.warm_maxiter > 0 else None)
+                widths = [[] for _ in alphas]
+                res = lobpcg_sep_rs_lanes(
+                    h_func, p_func, x0, self.cfg.nev, tol=self.tol,
+                    maxiter=self.maxiter, locking=self.locking, rp_fused=rp,
+                    limit=limit, monitor=[self._monitor(warm) for _ in alphas],
+                    widths=widths, **opts)
         del x0
         self._sync()
         wall = (time.time() - t0 + x0_wall) / len(alphas)
@@ -605,6 +608,7 @@ class KPointSolver:
         prev = [None]
 
         def doomed(it, res, lambdas):
+            tracing.count("sync.doom")
             lam = np.abs(lambdas[:nev].cpu().numpy())
             cap = self.doom_tol * 4.0 * np.pi * np.sqrt(np.maximum(lam, 1.0))
             with np.errstate(invalid="ignore"):
@@ -637,6 +641,7 @@ class KPointSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @tracing.spanned("pcx.solve")
     def solve(self, alpha, x0: Optional[torch.Tensor] = None, seed: int = 0,
               validate_result: bool = True, verbose: bool = False,
               raise_on_spurious: bool = True) -> EigenResult:
@@ -682,28 +687,29 @@ class KPointSolver:
             opts = dict(opts, refresh_every=refresh_period(sy.pnt))
         self.last_doom = None
         widths = None
-        if self.solver in DAVIDSONS:
-            fn = davidson_sep if self.solver == "davidson" else jd_sep
-            kw = {k: v for k, v in self.solver_opts.items()
-                  if k == "subspace"}
-            res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                     maxiter=self.maxiter, **kw)
-        elif self.impl == "complex":
-            res, = self._complex_lanes(one_lane(h_func), one_lane(p_func),
-                                       x0[None], opts)
-        else:
-            # K1 computes the preconditioner in float32: off for "mixed"
-            rp = (self._rp_fused(sy.inv, m)
-                  if self.dtype == torch.complex64 and self.solver != "mixed"
-                  else None)
-            limit = (min(self.maxiter, self.warm_maxiter)
-                     if warm and self.warm_maxiter > 0 else None)
-            widths = []
-            res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                                maxiter=self.maxiter, locking=self.locking,
-                                rp_fused=rp, limit=limit,
-                                monitor=self._monitor(warm), widths=widths,
-                                **opts)
+        with tracing.span("pcx.lobpcg"):
+            if self.solver in DAVIDSONS:
+                fn = davidson_sep if self.solver == "davidson" else jd_sep
+                kw = {k: v for k, v in self.solver_opts.items()
+                      if k == "subspace"}
+                res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
+                         maxiter=self.maxiter, **kw)
+            elif self.impl == "complex":
+                res, = self._complex_lanes(one_lane(h_func), one_lane(p_func),
+                                           x0[None], opts)
+            else:
+                # K1 computes the preconditioner in float32: off for "mixed"
+                rp = (self._rp_fused(sy.inv, m)
+                      if self.dtype == torch.complex64
+                      and self.solver != "mixed" else None)
+                limit = (min(self.maxiter, self.warm_maxiter)
+                         if warm and self.warm_maxiter > 0 else None)
+                widths = []
+                res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
+                                    maxiter=self.maxiter, locking=self.locking,
+                                    rp_fused=rp, limit=limit,
+                                    monitor=self._monitor(warm), widths=widths,
+                                    **opts)
         self._sync()
         wall = time.time() - t0 + x0_wall
         _heartbeat()
@@ -715,6 +721,7 @@ class KPointSolver:
         """The ``EigenResult`` of a solver result at ``alpha``, validated by
         ``refine`` when ``validate_result`` and the status allows."""
         cfg = self.cfg
+        tracing.count("sync.result")
         lambdas = res.lambdas.cpu().numpy().astype(float)
         status = res.status
         report = None
@@ -742,6 +749,7 @@ class KPointSolver:
                            widths=(None if widths is None
                                    else np.asarray(widths, np.int64)))
 
+    @tracing.spanned("pcx.refine")
     def refine_stats(self, alpha, x: torch.Tensor):
         """complex128 Rayleigh-Ritz refine of the iterated subspace and the
         validation statistics of its leading nev modes (pcx
@@ -764,9 +772,11 @@ class KPointSolver:
         den = dots(y, y).real.clamp(min=1e-30)
         lam_re = dots(y, ay).real / den
         res = norms(ay - (theta[:nev] - shift)[:, None] * y) / den.sqrt()
+        tracing.count("sync.refine", 3)
         return (theta.cpu().numpy(), lam_re.cpu().numpy(),
                 res.cpu().numpy())
 
+    @tracing.spanned("pcx.refine")
     def refine_light_stats(self, alpha, x: torch.Tensor):
         """The light refine (``refine="light"``; pcx ``_refine_light_jit``):
         ``refine_stats`` with the operator applied in the iterate's dtype
@@ -800,6 +810,7 @@ class KPointSolver:
         lam_re = diag_f64(y, ay) / den
         r = ay - (theta[:nev] - shift).to(self.rdt)[:, None] * y
         res = (diag_f64(r, r) / den).sqrt()
+        tracing.count("sync.refine", 3)
         return (theta.cpu().numpy(), lam_re.cpu().numpy(),
                 res.cpu().numpy())
 

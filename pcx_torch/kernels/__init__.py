@@ -14,8 +14,11 @@ Each wrapper counts its launches in a plain integer attribute
 (``resid_precond.launches``), incremented only where the kernel launches;
 K2 also counts them by its batch B (``axis_dft.launches_by_batch``, 3 m
 in an operator apply on m columns, 3 L m over L lanes).
+``reset_launches`` also resets the program's other counters and span
+totals (``pcx_torch.tracing``).
 """
 
+from pcx_torch import tracing
 from pcx_torch.kernels.axis_dft import axis_dft
 from pcx_torch.kernels.gram9 import gram9, gram9_lanes
 from pcx_torch.kernels.resid_precond import resid_precond, resid_precond_lanes
@@ -27,6 +30,7 @@ def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     axis_dft.launches_by_batch = {}
+    tracing.reset()
 
 
 def launches() -> dict:

@@ -18,13 +18,14 @@ symbols from the 1-D parts instead.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from pcx_torch import lattices
+from pcx_torch import lattices, tracing
 from pcx_torch.config import SCAL, ProblemConfig, set_relaxation
 from pcx_torch.operators import dielectric as diel_mod
 from pcx_torch.operators import symbols as sym
@@ -42,17 +43,30 @@ def ama(x: torch.Tensor, d_a: torch.Tensor, diel,
     being any ``dielectric.DielectricOp`` (a real scale, a Hermitian block
     or the cross-DoF stencil).  With ``dft`` the transforms are ``dft3``'s
     three axis passes (kernel K2 for complex64); without it, torch.fft (the
-    complex128 refine)."""
+    complex128 refine).  One operator apply (span ``pcx.op``, counters
+    ``op.applies`` and ``op.columns``)."""
+    with tracing.span("pcx.op"):
+        _count_apply(x)
+        return _ama(x, d_a, diel, dft)
+
+
+def _count_apply(x: torch.Tensor) -> None:
+    tracing.count("op.applies")
+    tracing.count("op.columns", math.prod(x.shape[:-4]))
+
+
+def _ama(x: torch.Tensor, d_a: torch.Tensor, diel,
+         dft: Optional[DFTMats]) -> torch.Tensor:
     y = a_block(x, -d_a.conj())
     # the lanes of a k-point batch fold into the column axis around the
     # shared dielectric and DFT (one K2 pass over all lanes' columns)
     lead = y.shape[:-4]
     y = y.reshape((-1,) + y.shape[-4:])
-    if dft is None:
-        y = torch.fft.fftn(y, dim=_SPATIAL)
-        y = torch.fft.ifftn(diel(y), dim=_SPATIAL)
-    else:
-        y = dft3(diel(dft3(y, dft)), dft, inverse=True)
+    y = torch.fft.fftn(y, dim=_SPATIAL) if dft is None else dft3(y, dft)
+    with tracing.span("pcx.diel"):
+        y = diel(y)
+    y = (torch.fft.ifftn(y, dim=_SPATIAL) if dft is None
+         else dft3(y, dft, inverse=True))
     return a_block(y.reshape(lead + y.shape[-4:]), d_a)
 
 
@@ -60,11 +74,14 @@ def ama_bb(x: torch.Tensor, d_a: torch.Tensor, b: HermSymbol, diel,
            shift=0.0, dft: Optional[DFTMats] = None) -> torch.Tensor:
     """A M A^H + pnt B^H B (+ shift); ``b`` already includes pnt.  Lanes of
     a k-point batch: x (L, c, 3, N, N, N) with symbols (L, 1, 3, N, N, N)
-    and ``shift`` a real (L, 1, 1, 1, 1, 1) tensor."""
-    y = ama(x, d_a, diel, dft) + h_block(x, b)
-    if isinstance(shift, torch.Tensor) or shift != 0.0:
-        y = y + shift * x
-    return y
+    and ``shift`` a real (L, 1, 1, 1, 1, 1) tensor.  One operator apply,
+    as ``ama``."""
+    with tracing.span("pcx.op"):
+        _count_apply(x)
+        y = _ama(x, d_a, diel, dft) + h_block(x, b)
+        if isinstance(shift, torch.Tensor) or shift != 0.0:
+            y = y + shift * x
+        return y
 
 
 class MaxwellProblem(nn.Module):

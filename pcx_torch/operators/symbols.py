@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pcx_torch import stencils
+from pcx_torch import stencils, tracing
 from pcx_torch.config import SCAL
 from pcx_torch.utils import real_dtype
 
@@ -81,9 +81,11 @@ def _bcast(v: torch.Tensor, axis: int) -> torch.Tensor:
 
 def build_curl(parts: SymbolParts, alpha) -> torch.Tensor:
     """Curl symbol D_A, complex128 (3, N, N, N), from the 1-D parts
-    (twin of ``rs.build_curl_p``)."""
+    (twin of ``rs.build_curl_p``).  Uploads alpha: on the card a host
+    sync (counter ``sync.upload``)."""
     d1, d0, ct = parts
     n = d1.shape[0]
+    tracing.count("sync.upload")
     alpha = torch.as_tensor(np.asarray(alpha, np.float64), device=d1.device)
     rows = []
     for c in range(3):

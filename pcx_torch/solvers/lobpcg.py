@@ -397,7 +397,7 @@ def lobpcg_sep_lanes(
         if use_f64_rr:
             theta_all, c_all = rr.eigh_split(t, split)
         else:
-            theta_all, c_all = torch.linalg.eigh(t)
+            theta_all, c_all = rr.eigh(t)
         theta, c = _window(theta_all, c_all.to(cdtype), basis_mask, m)
         x, p = _block_update(c, m, blocks)
         hx, hp = _block_update(c, m, hblocks)

@@ -17,7 +17,10 @@ norms and Ritz values come back to the host in ONE transfer, and the
 status bookkeeping of the JAX while-loop runs there on numpy scalars in the
 iterate's real dtype; the active-column mask goes back as an (m,) tensor.
 The loop issues no other synchronization of its own (``torch.linalg.eigh``
-on CUDA checks its error flag on the host, which synchronizes).
+on CUDA checks its error flag on the host, which synchronizes).  Its spans
+(``pcx_torch.tracing``) are ``pcx.precond``, ``pcx.step`` (the host's
+bookkeeping from the read-back to the uploads of the masks), ``pcx.svqb``
+and ``pcx.rr``; its syncs count as ``sync.readback`` and ``sync.upload``.
 
 ``lobpcg_sep_rs_lanes`` is the lockstep k-point batch, JAX's vmapped
 ``_jitted_batch_rs``: L problems as lanes of one loop, one read-back and
@@ -38,6 +41,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pcx_torch import tracing
 from pcx_torch.config import MAXITER, TOL
 from pcx_torch.kernels.gram9 import gram9, gram9_lanes
 from pcx_torch.solvers import rayleigh_ritz as rr
@@ -419,6 +423,7 @@ def lobpcg_sep_rs_lanes(
         run = tuple(run[j] for j in keep)
         if not run:
             return extra
+        tracing.count("sync.upload")
         idx = torch.as_tensor(keep, device=dev)
         x, hx, p, hp, lambdas, x_ok = (a.index_select(0, idx) for a in
                                        (x, hx, p, hp, lambdas, x_ok))
@@ -435,6 +440,7 @@ def lobpcg_sep_rs_lanes(
         if len(due) == len(run):
             hx, hp = hf(x, run), hf(p, run)
         elif due:
+            tracing.count("sync.upload")
             idx = torch.as_tensor(due, device=dev)
             sub = tuple(run[j] for j in due)
             hx.index_copy_(0, idx, hf(x.index_select(0, idx), sub))
@@ -444,54 +450,61 @@ def lobpcg_sep_rs_lanes(
             r = lambdas[..., None] * x - hx
             res = rr.colnorms(r, lanes=True)
         else:
-            w_raw, sumsq = rp_fused(x, hx, lambdas, run)
+            with tracing.span("pcx.precond"):
+                w_raw, sumsq = rp_fused(x, hx, lambdas, run)
             res = torch.sqrt(sumsq).to(rdtype)
-        host = torch.cat((res, lambdas), dim=-1).cpu().numpy()  # the one sync
-        res_h, lam_h = host[:, :m], host[:, m:]
-        stopped, actives = {}, []
-        for j, lane in enumerate(run):
-            if it > 0 and np.isnan(lam_h[j]).any():
-                stopped[j] = Status.NAN   # the previous Rayleigh-Ritz failed
-                continue
-            st, act = trks[lane].update(it, res_h[j], lam_h[j])
-            if st != Status.RUNNING:
-                stopped[j] = st
+        with tracing.span("pcx.step"):
+            tracing.count("sync.readback")   # the one sync
+            host = torch.cat((res, lambdas), dim=-1).cpu().numpy()
+            res_h, lam_h = host[:, :m], host[:, m:]
+            stopped, actives = {}, []
+            for j, lane in enumerate(run):
+                if it > 0 and np.isnan(lam_h[j]).any():
+                    # the previous Rayleigh-Ritz failed
+                    stopped[j] = Status.NAN
+                    continue
+                st, act = trks[lane].update(it, res_h[j], lam_h[j])
+                if st != Status.RUNNING:
+                    stopped[j] = st
+                else:
+                    actives.append(act)
+            if stopped:
+                res_h = np.delete(res_h, list(stopped), axis=0)
+                r, w_raw = retire(stopped, (r, w_raw))
+            if not run:
+                break
+            n_run = len(run)
+            active_h = np.stack(actives)
+
+            # ---- step: W = P R on the active columns, P, Rayleigh-Ritz ----
+            wc = max(width(it, int(a.sum())) for a in active_h)
+            for lane in run:
+                widths[lane].append(wc)
+            if wc < m:
+                # each lane's wc active columns of highest residual, on the
+                # host (lobpcg_rs.py:368-381): residual priority, so that a
+                # fixed cap below the active count rotates its slots
+                idx_h = np.argsort(-(active_h.astype(f) * res_h), axis=1,
+                                   kind="stable")[:, :wc]
+                tracing.count("sync.upload", 2)
+                gidx = torch.as_tensor(idx_h, device=dev)[..., None]
+                sel = torch.as_tensor(np.take_along_axis(active_h, idx_h, 1),
+                                      device=dev).to(rdtype)
+
+                def gather(a: torch.Tensor) -> torch.Tensor:
+                    return torch.gather(a, 1, gidx.expand(-1, -1, a.shape[-1]))
             else:
-                actives.append(act)
-        if stopped:
-            res_h = np.delete(res_h, list(stopped), axis=0)
-            r, w_raw = retire(stopped, (r, w_raw))
-        if not run:
-            break
-        n_run = len(run)
-        active_h = np.stack(actives)
+                tracing.count("sync.upload")
+                sel = torch.as_tensor(active_h, device=dev).to(rdtype)
 
-        # ---- step: W = P R on the active columns, P, Rayleigh-Ritz --------
-        wc = max(width(it, int(a.sum())) for a in active_h)
-        for lane in run:
-            widths[lane].append(wc)
-        if wc < m:
-            # each lane's wc active columns of highest residual, on the host
-            # (lobpcg_rs.py:368-381): residual priority, so that a fixed
-            # cap below the active count rotates its slots
-            idx_h = np.argsort(-(active_h.astype(f) * res_h), axis=1,
-                               kind="stable")[:, :wc]
-            gidx = torch.as_tensor(idx_h, device=dev)[..., None]
-            sel = torch.as_tensor(np.take_along_axis(active_h, idx_h, 1),
-                                  device=dev).to(rdtype)
-
-            def gather(a: torch.Tensor) -> torch.Tensor:
-                return torch.gather(a, 1, gidx.expand(-1, -1, a.shape[-1]))
-        else:
-            sel = torch.as_tensor(active_h, device=dev).to(rdtype)
-
-            def gather(a: torch.Tensor) -> torch.Tensor:
-                return a
-        acol = sel[..., None]
+                def gather(a: torch.Tensor) -> torch.Tensor:
+                    return a
+            acol = sel[..., None]
         if rp_fused is None:
-            w = p_func((acol * gather(r)).reshape((n_run, wc) + shape[1:]),
-                       run)
-            w = w.reshape(n_run, wc, -1)
+            with tracing.span("pcx.precond"):
+                w = p_func((acol * gather(r)).reshape((n_run, wc) + shape[1:]),
+                           run)
+                w = w.reshape(n_run, wc, -1)
         else:
             w = gather(w_raw)
         del r, w_raw
@@ -511,36 +524,38 @@ def lobpcg_sep_rs_lanes(
             pf, p_act, noise_floor, hblock=hpf, against=(x, w),
             h_against=(hx, hw), passes=ortho_passes)
 
-        basis_mask = torch.cat((x_ok, w_ok, p_ok), dim=-1)
-        if rr_gram == "pallas":
-            t = gram(*(a.to(torch.complex64)
-                       for a in (x, w, pf, hx, hw, hpf)))
-        else:
-            sf = torch.cat((x, w, pf), dim=-2)
-            hsf = torch.cat((hx, hw, hpf), dim=-2)
-            t = rr.gram_f64(sf, hsf)
-        theta_all, v = masked_rr(t, basis_mask, -1.0)
-        c_all = v.to(cdtype) * basis_mask[..., :, None]
-        # The dead columns sort first: the window of m Ritz pairs starts
-        # after them (clamped like lax.dynamic_slice).
-        nb = m + 2 * wc
-        valid = basis_mask.sum(-1, keepdim=True)
-        start = (nb - valid).clamp(0, nb - m).long()
-        idx = start + arange_m
-        x_ok = (arange_m >= (m - valid).clamp(min=0)).to(rdtype)
-        c = torch.gather(c_all, -1, idx[:, None, :].expand(-1, nb, -1))
-        lambdas = torch.gather(theta_all.to(rdtype), -1, idx)
-        if rr_gram == "pallas":
-            cx, cw, cp = c[:, :m], c[:, m:2 * m], c[:, 2 * m:]
-            p = rr.mix(cw, w) + rr.mix(cp, pf)
-            hp = rr.mix(cw, hw) + rr.mix(cp, hpf)
-            x = rr.mix(cx, x) + p
-            hx = rr.mix(cx, hx) + hp
-        else:
-            p, hp = rr.mix(c[:, m:], sf[:, m:]), rr.mix(c[:, m:], hsf[:, m:])
-            x, hx = rr.mix(c, sf), rr.mix(c, hsf)
-            del sf, hsf
-        del w, hw, pf, hpf
+        with tracing.span("pcx.rr"):
+            basis_mask = torch.cat((x_ok, w_ok, p_ok), dim=-1)
+            if rr_gram == "pallas":
+                t = gram(*(a.to(torch.complex64)
+                           for a in (x, w, pf, hx, hw, hpf)))
+            else:
+                sf = torch.cat((x, w, pf), dim=-2)
+                hsf = torch.cat((hx, hw, hpf), dim=-2)
+                t = rr.gram_f64(sf, hsf)
+            theta_all, v = masked_rr(t, basis_mask, -1.0)
+            c_all = v.to(cdtype) * basis_mask[..., :, None]
+            # The dead columns sort first: the window of m Ritz pairs starts
+            # after them (clamped like lax.dynamic_slice).
+            nb = m + 2 * wc
+            valid = basis_mask.sum(-1, keepdim=True)
+            start = (nb - valid).clamp(0, nb - m).long()
+            idx = start + arange_m
+            x_ok = (arange_m >= (m - valid).clamp(min=0)).to(rdtype)
+            c = torch.gather(c_all, -1, idx[:, None, :].expand(-1, nb, -1))
+            lambdas = torch.gather(theta_all.to(rdtype), -1, idx)
+            if rr_gram == "pallas":
+                cx, cw, cp = c[:, :m], c[:, m:2 * m], c[:, 2 * m:]
+                p = rr.mix(cw, w) + rr.mix(cp, pf)
+                hp = rr.mix(cw, hw) + rr.mix(cp, hpf)
+                x = rr.mix(cx, x) + p
+                hx = rr.mix(cx, hx) + hp
+            else:
+                p = rr.mix(c[:, m:], sf[:, m:])
+                hp = rr.mix(c[:, m:], hsf[:, m:])
+                x, hx = rr.mix(c, sf), rr.mix(c, hsf)
+                del sf, hsf
+            del w, hw, pf, hpf
         it += 1
         retire({j: Status.RUNNING for j, lane in enumerate(run)
                 if monitors[lane] is not None and it < stops[lane]
@@ -551,6 +566,7 @@ def lobpcg_sep_rs_lanes(
         if status == Status.RUNNING:
             # stopped by the limit or the monitor: a NaN from the last
             # Rayleigh-Ritz still reports NAN, as the JAX step does
+            tracing.count("sync.result")
             status = (Status.NAN if bool(torch.isnan(lam).any())
                       else Status.MAXITER)
         out.append(SolveResult(lambdas=lam, x=xl.reshape(shape),

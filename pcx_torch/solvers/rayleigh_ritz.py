@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from pcx_torch import tracing
 from pcx_torch.utils import all_reduce_sum, norms, real_dtype
 
 C128 = torch.complex128
@@ -131,6 +132,15 @@ def split_for(rdtype: torch.dtype, svqb: bool = False) -> float:
     return 1e-12 if svqb else 1e-10
 
 
+def eigh(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh``, the solvers' only call of it (span
+    ``pcx.eigh``, counter ``sync.eigh``): on the card it reads its error
+    flag back to the host, which synchronizes."""
+    tracing.count("sync.eigh")
+    with tracing.span("pcx.eigh"):
+        return torch.linalg.eigh(t)
+
+
 def eigh_split(t: torch.Tensor, split: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ascending eigenpairs of a Hermitian complex128 matrix after a graded
@@ -141,7 +151,7 @@ def eigh_split(t: torch.Tensor, split: float
     scale = _absmax(t.real) + _absmax(t.imag) + 1e-30
     pert = split * scale[..., None] * torch.arange(p, dtype=torch.float64,
                                                    device=t.device) / p
-    return torch.linalg.eigh(t + torch.diag_embed(pert).to(C128))
+    return eigh(t + torch.diag_embed(pert).to(C128))
 
 
 def _absmax(a: torch.Tensor) -> torch.Tensor:
@@ -149,6 +159,7 @@ def _absmax(a: torch.Tensor) -> torch.Tensor:
     return a.abs().amax(dim=(-2, -1))
 
 
+@tracing.spanned("pcx.svqb")
 def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
                      drop_tol: float, hblock: Optional[torch.Tensor] = None,
                      against: Sequence[torch.Tensor] = (),
@@ -214,7 +225,7 @@ def pencil_eigh(t: torch.Tensor, g: torch.Tensor, split: float = 1e-12
     g = hermitize(g)
     t = hermitize(t)
     m = t.shape[0]
-    lam, u = torch.linalg.eigh(g)
+    lam, u = eigh(g)
     alive = lam > 1e-12 * lam.max()
     inv_sqrt = torch.where(alive, 1.0 / torch.sqrt(lam.clamp(min=1e-30)),
                            torch.zeros_like(lam))
@@ -225,7 +236,7 @@ def pencil_eigh(t: torch.Tensor, g: torch.Tensor, split: float = 1e-12
                                         device=t.device) / m
     dead = 1.0 - torch.diagonal(s @ g @ s).real
     bump = 2.0 * scale * (dead > 0.5).to(torch.float64)
-    theta, v = torch.linalg.eigh(tw + torch.diag(pert + bump).to(C128))
+    theta, v = eigh(tw + torch.diag(pert + bump).to(C128))
     return theta, s @ v
 
 
@@ -249,7 +260,7 @@ def eigh_pencil(t: torch.Tensor, g: torch.Tensor
     l = torch.linalg.cholesky(g)
     t1 = _tri_solve(l, t)
     t2 = _tri_solve(l, t1.mH).mH
-    theta, q = torch.linalg.eigh(hermitize(t2))
+    theta, q = eigh(hermitize(t2))
     return theta, _tri_solve(l.mH, q, upper=True)   # v = L^{-H} q
 
 
