@@ -35,7 +35,14 @@ failure ends the run with a non-zero exit:
              (and both against complex128); timed beside the stacked
              ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
              torch.cat that builds its input; then its lane form at 4 lanes,
-             as phase 3's, beside the stacked ``rr.gram_f64`` of the lanes.
+             as phase 3's, beside the stacked ``rr.gram_f64`` of the lanes;
+             then K4 block_combine at the main path's three calls (m=16,
+             N=120: the second SVQB's projection and scaling, the
+             Rayleigh-Ritz update of the stacked block), each
+             against its plain version and complex128 (no worse than 1.5x
+             the error of one cuBLAS GEMM over the concatenated blocks),
+             timed beside its bound, the plain version, one cuBLAS call and
+             the same with the concatenation.
 6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
@@ -240,18 +247,22 @@ failure ends the run with a non-zero exit:
              must launch, K1 and K3 never.
 
 The kernel launch counts are reset just before phase 7 and read after
-phases 7 and 8 (K1 and K2 must have launched: the default rr_gram="xla"
-route), reset again just before phase 9 and read after it (K1, K2 and
-K3 must all have launched), and once more before phase 11: read after its
-sweep (K1, K2, K3) and after its single solves (K1, K2), and around each
-solve of phase 13, around phase 14, around each solve of phase 16,
-around phase 17 (K1 and K2 must launch), on rank 0 around phase 18's
-``bandgap(mesh=)`` (K1, K2 and K3 must launch) and around phase 19 (K1,
-K2 and K3 must launch, in its sweeps (d) too), around each of phase
-20's (a), (b) and (c) (K1 and K2 must launch), and around each solve of
-phase 21 (b) and its (c) (K1 and K2 must launch), and around each group
-of phase 22 (a) and its (b) (K1's and K3's lane forms and K2), and
-around each group of phase 23 (a) and its (b) (K2 alone).
+phases 7 and 8 (K1, K2 and K4 must have launched: the default
+rr_gram="xla" route), reset again just before phase 9 and read after it
+(K1, K2, K3 and K4 must all have launched; K4 then joins every later check
+that all the serial kernels launched); after both, the counter
+``dense.matmul`` (complex64 block combinations past K4's limits, which
+take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0, and once
+more before phase 11: read after its sweep (K1, K2, K3) and after its
+single solves (K1, K2), and around each solve of phase 13, around phase
+14, around each solve of phase 16, around phase 17 (K1 and K2 must
+launch), on rank 0 around phase 18's ``bandgap(mesh=)`` (K1, K2 and K3
+must launch) and around phase 19 (K1, K2 and K3 must launch, in its sweeps
+(d) too), around each of phase 20's (a), (b) and (c) (K1 and K2 must
+launch), and around each solve of phase 21 (b) and its (c) (K1 and K2 must
+launch), and around each group of phase 22 (a) and its (b) (K1's and K3's
+lane forms and K2), and around each group of phase 23 (a) and its (b) (K2
+alone).
 The ``{"kernels": [...]}`` line gives, per
 kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
@@ -302,6 +313,8 @@ TF32X3_FLOPS = 495e12 / 3
 FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 # The wrappers of the one-point solve; their lane forms run in phase 22.
 SERIAL_KERNELS = ("resid_precond", "axis_dft", "gram9")
+# The kernels of the default route (rr_gram="xla"), phases 7-8.
+PATH_KERNELS = ("resid_precond", "axis_dft", "block_combine")
 # Phase 22: the lockstep k-point batch.
 LANES_K = 4                  # lanes of the K1 / K3 lane forms (phases 3, 5)
 LANE_COUNTS = (1, 2, 4)      # (a): lanes of the timed groups
@@ -805,6 +818,87 @@ def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
             "lanes": lanes, "max_abs_err": err, "ms": ms,
             "ms_per_lane": ms / lanes, "one_lane_ms": one_ms,
             "plain_ms": plain_ms, **rec, "library_ms": lib_ms}
+
+
+def phase_k4(gen, dev, peak: float, m: int = 16) -> dict:
+    """K4 block_combine at the three calls of the main path at N=120, m=16:
+    the second SVQB's projection P - [X|W] C (two blocks and an addend),
+    its scaling C^T P, and the Rayleigh-Ritz update X' = [X|W|P] C of the
+    stacked (48, D) block (the densest call).  Each against its plain
+    version (atol 1e-5 of the output scale) and complex128 (no worse than
+    1.5x the error of the stacked composition: one cuBLAS cgemm over the
+    concatenated blocks, then the subtraction);
+    timed beside its bound, the plain version, one cuBLAS call of the same
+    products on operands stacked beforehand (``library_ms``) and the
+    stacked composition with its concatenation (``stacked_ms``)."""
+    from pcx_torch.kernels.block_combine import (block_combine,
+                                                 block_combine_plain,
+                                                 bytes_moved)
+    d = 3 * N ** 3
+    c = lambda *sh: torch.randn(sh, generator=gen, device=dev,
+                                dtype=torch.complex64)
+    stack, coef, add = c(3 * m, d), c(3 * m, m), c(m, d)
+    x, w = stack[:m], stack[m:2 * m]
+    calls = {
+        "projection": (((x, w), (coef[:m], coef[m:2 * m])),
+                       {"addend": add, "subtract": True},
+                       lambda: torch.addmm(add, coef[:2 * m].T,
+                                           stack[:2 * m], alpha=-1),
+                       lambda: add - coef[:2 * m].T @ torch.cat((x, w))),
+        "scaling": (((add,), (coef[:m],)), {},
+                    lambda: coef[:m].T @ add, lambda: coef[:m].T @ add),
+        "update": (((stack,), (coef,)), {}, lambda: coef.T @ stack,
+                   lambda: coef.T @ stack),
+    }
+    out = {}
+    for name, (args, kw, lib_fn, stacked_fn) in calls.items():
+        got = block_combine(*args, **kw)
+        want = block_combine_plain(*args, **kw)
+        a128 = [[t.to(torch.complex128) for t in grp] for grp in args]
+        kw128 = {k: (v.to(torch.complex128) if torch.is_tensor(v) else v)
+                 for k, v in kw.items()}
+        exact = block_combine_plain(*a128, **kw128)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        err_k = max_err(got.to(torch.complex128), exact)
+        err_p = max_err(want.to(torch.complex128), exact)
+        err_lib = max_err(stacked_fn().to(torch.complex128), exact)
+        del got, want, exact, a128, kw128
+        ms = cuda_ms(lambda: block_combine(*args, **kw))
+        plain_ms = cuda_ms(lambda: block_combine_plain(*args, **kw))
+        lib_ms = cuda_ms(lib_fn)
+        stacked_ms = cuda_ms(stacked_fn)
+        rows = sum(b.shape[0] for b in args[0])
+        b = bound(8.0 * rows * m * d, bytes_moved(*args, kw.get("addend")),
+                  peak)
+        print(f"phase k4 {name}: {rows} rows -> {m} at D={d} "
+              f"{'with' if kw else 'without'} addend: max|d|/max|out|="
+              f"{err / scale:.3e} (vs complex128: kernel "
+              f"{err_k / scale:.3e}, plain {err_p / scale:.3e}, stacked "
+              f"{err_lib / scale:.3e}); kernel "
+              f"{ms:.3f} ms plain {plain_ms:.3f} ms library (one cuBLAS "
+              f"call, stacked) {lib_ms:.3f} ms with the concatenation "
+              f"{stacked_ms:.3f} ms bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']}) = {100 * b['bound_ms'] / ms:.1f}% reached",
+              flush=True)
+        if not err <= 1e-5 * scale:
+            fail(f"K4 {name} disagrees with its plain version (atol "
+                 f"1e-5*max|out|)")
+        if not err_k <= 1.5 * err_lib:
+            fail(f"K4 {name}: error against complex128 {err_k:.3e} over "
+                 f"1.5x the stacked cuBLAS composition's {err_lib:.3e}")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "stacked_ms": stacked_ms, **b,
+                     "share": b["bound_ms"] / ms, "max_abs_err": err,
+                     "err_c128": err_k, "err_c128_plain": err_p,
+                     "err_c128_stacked": err_lib}
+    del stack, coef, add, x, w, calls
+    torch.cuda.empty_cache()
+    upd = out["update"]
+    return {"name": "block_combine", "route": "cuda", "arith": FP32_FMA,
+            "source": "pcx_torch/kernels/csrc/block_combine.cu",
+            "replaces": None, **upd, "calls": out}
 
 
 def phase_operator(gen, dev, n: int = N, diel_type: str = "chiral"):
@@ -2836,6 +2930,19 @@ def phase_complex_lanes(dev, n: int = N, golden: bool = True,
             "peak_gib": peaks}
 
 
+def dense_routes(where: str) -> None:
+    """Gate the dense algebra's routes since the last counter reset: every
+    complex64 block combination launched K4 (``dense.k4`` > 0), none took
+    ``torch.matmul`` (``dense.matmul`` 0)."""
+    from pcx_torch import tracing
+    got = {k: v for k, v in tracing.counts().items()
+           if k.startswith(("dense.", "k4."))}
+    print(f"phase routes: {got} in {where}", flush=True)
+    if got.get("dense.matmul", 0) or not got.get("dense.k4", 0):
+        fail(f"a complex64 block combination took torch.matmul in "
+             f"{where}: {got}")
+
+
 def main() -> None:
     t_start = time.time()
     peak = phase_device()
@@ -2848,22 +2955,24 @@ def main() -> None:
                phase_k3(gen, dev, peak)]
     lane_kernels = [phase_k1_lanes(gen, dev, peak, kernels[0]["ms"]),
                     phase_k3_lanes(gen, dev, peak, kernels[2]["ms"])]
+    kernels.append(phase_k4(gen, dev, peak))
     phase_operator(gen, dev)
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)
     kmod.reset_launches()
     single = phase_single(dev)
     counts = kmod.launches()
-    if not (counts["resid_precond"] and counts["axis_dft"]):
-        fail(f"K1 or K2 never launched in the single point: {counts}")
+    if not all(counts[k] for k in PATH_KERNELS):
+        fail(f"K1, K2 or K4 never launched in the single point: {counts}")
     warm_ms = phase_warm(dev)
     counts = kmod.launches()
     print(f"phase launches: {counts} in the solves of phases 7-8 "
           f"(rr_gram='xla'); peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
           flush=True)
-    if not (counts["resid_precond"] and counts["axis_dft"]):
-        fail(f"K1 or K2 never launched in the solves: {counts}")
+    if not all(counts[k] for k in PATH_KERNELS):
+        fail(f"K1, K2 or K4 never launched in the solves: {counts}")
+    dense_routes("the solves of phases 7-8")
     for rec in kernels:
         rec["launches_solves"] = counts[rec["name"]]
 
@@ -2879,6 +2988,7 @@ def main() -> None:
         rec["launches"] = counts[rec["name"]]
     if not all(rec["launches"] > 0 for rec in kernels):
         fail(f"a kernel of the path never launched in the sweep: {counts}")
+    dense_routes("the sweep of phase 9")
 
     diel_ms = phase_pseudo_operator(gen, dev)
     torch.cuda.reset_peak_memory_stats(dev)

@@ -1,10 +1,12 @@
 """The port's hand-written CUDA kernels (sm_90a), one per Pallas TPU kernel
-of ``pcx/operators/pallas_kernels.py``:
+of ``pcx/operators/pallas_kernels.py`` and one of the port's own:
 
 * K1 ``resid_precond`` — replaces ``fused_resid_precond``;
 * K2 ``axis_dft``      — replaces ``axis_dft_pairs`` (an FFT on the card,
   where the TPU contracts with the dense DFT matrix);
-* K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``).
+* K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``);
+* K4 ``block_combine`` — replaces no Pallas kernel: the dense algebra's block
+  combinations (JAX leaves them to XLA), one pass over blocks where they lie.
 
 K1 and K3 also have lane forms for the lockstep k-point batch, the same
 kernels over L problems in one launch: ``resid_precond_lanes`` and
@@ -13,17 +15,20 @@ kernels over L problems in one launch: ``resid_precond_lanes`` and
 Each wrapper counts its launches in a plain integer attribute
 (``resid_precond.launches``), incremented only where the kernel launches;
 K2 also counts them by its batch B (``axis_dft.launches_by_batch``, 3 m
-in an operator apply on m columns, 3 L m over L lanes).
+in an operator apply on m columns, 3 L m over L lanes); K4 adds the bytes
+of each launch to the program counter ``k4.bytes``.
 ``reset_launches`` also resets the program's other counters and span
 totals (``pcx_torch.tracing``).
 """
 
 from pcx_torch import tracing
 from pcx_torch.kernels.axis_dft import axis_dft
+from pcx_torch.kernels.block_combine import block_combine
 from pcx_torch.kernels.gram9 import gram9, gram9_lanes
 from pcx_torch.kernels.resid_precond import resid_precond, resid_precond_lanes
 
-WRAPPERS = (resid_precond, axis_dft, gram9, resid_precond_lanes, gram9_lanes)
+WRAPPERS = (resid_precond, axis_dft, gram9, resid_precond_lanes, gram9_lanes,
+            block_combine)
 
 
 def reset_launches() -> None:

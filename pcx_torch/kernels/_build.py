@@ -44,6 +44,7 @@ SIGNATURES = {
     "pcx_axis_dft_encode_us": ([_P] + [_I] * 5, ctypes.c_double),
     "pcx_gram9": ([_P] * 8 + [_I, _I, _LL, _I, _P], _I),
     "pcx_gram9_chunks": ([_LL, _I], _LL),
+    "pcx_block_combine": ([_P, _P, _P], _I),
 }
 
 

@@ -73,7 +73,7 @@ def _davidson(h_func: Callable, p_func: Callable, x0: torch.Tensor, nev: int,
             return pf(r)       # preconditioned Davidson correction t = P r
 
         def proj(z):
-            return z - rr.mix(rr.gram(x, z), x)
+            return rr.combine((x,), (rr.gram(x, z),), z, subtract=True)
 
         lam = lambdas.to(cdtype)[:, None]
 

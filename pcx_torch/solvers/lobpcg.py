@@ -91,11 +91,12 @@ def _window(theta_all: torch.Tensor, c_all: torch.Tensor,
 
 def _block_update(c: torch.Tensor, m: int, blocks):
     """X C_x + P_new and P_new = W C_w + P C_p of one set of blocks (X, W,
-    P) (reference _sep_update_after_rr, lobpcg.py:1248-1270); blocks and C
-    may carry a leading lane axis."""
+    P) (reference _sep_update_after_rr, lobpcg.py:1248-1270), each one
+    ``rr.combine`` over the blocks where they lie; blocks and C may carry a
+    leading lane axis."""
     x, w, p = blocks
-    pn = rr.mix(c[..., m:2 * m, :], w) + rr.mix(c[..., 2 * m:, :], p)
-    return rr.mix(c[..., :m, :], x) + pn, pn
+    pn = rr.combine((w, p), (c[..., m:2 * m, :], c[..., 2 * m:, :]))
+    return rr.combine((x,), (c[..., :m, :],), pn), pn
 
 
 class _SepTracker:

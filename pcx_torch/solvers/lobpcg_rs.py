@@ -221,12 +221,13 @@ def lobpcg_sep_rs(
 
     ``rr_gram`` keeps the JAX option's name and values: ``"xla"`` forms the
     Rayleigh-Ritz Gram as one stacked [X|W|P]^H [HX|HW|HP] ``gram_f64`` and
-    updates X and P through the stacked blocks; ``"pallas"`` names the
-    fused-Gram kernel K3 (``pcx_torch.kernels.gram9``), whatever the device
-    (the kernel on CUDA tensors, its plain version on CPU ones), with the
-    operands rounded to complex64 as the TPU kernel does and the blockwise
-    update p = cw W + cp P, x = cx X + p with no concatenation
-    (pcx/solvers/lobpcg_rs.py:496-510).
+    updates X and P from slices of the stacked blocks; ``"pallas"`` names
+    the fused-Gram kernel K3 (``pcx_torch.kernels.gram9``), whatever the
+    device (the kernel on CUDA tensors, its plain version on CPU ones), with
+    the operands rounded to complex64 as the TPU kernel does, and updates
+    from the separate blocks with no concatenation
+    (pcx/solvers/lobpcg_rs.py:496-510).  Every block combination is
+    ``rr.combine`` (kernel K4 on the card) on the blocks where they lie.
 
     ``w_cap`` caps the width of the W and P blocks (lobpcg_rs.py:88-102,
     364-470): each iteration the ``wc`` columns of highest residual among
@@ -544,12 +545,16 @@ def lobpcg_sep_rs_lanes(
             x_ok = (arange_m >= (m - valid).clamp(min=0)).to(rdtype)
             c = torch.gather(c_all, -1, idx[:, None, :].expand(-1, nb, -1))
             lambdas = torch.gather(theta_all.to(rdtype), -1, idx)
+            # Each route keeps its order of summation: "xla" sums X' over
+            # the stacked X, W, P rows in one product (P' + X C_x rounds
+            # otherwise and took warm complex64 points at N=120 3-4% more
+            # iterations to FLOOR), "pallas" adds P' to X C_x last.
             if rr_gram == "pallas":
                 cx, cw, cp = c[:, :m], c[:, m:2 * m], c[:, 2 * m:]
-                p = rr.mix(cw, w) + rr.mix(cp, pf)
-                hp = rr.mix(cw, hw) + rr.mix(cp, hpf)
-                x = rr.mix(cx, x) + p
-                hx = rr.mix(cx, hx) + hp
+                p = rr.combine((w, pf), (cw, cp))
+                hp = rr.combine((hw, hpf), (cw, cp))
+                x = rr.combine((x,), (cx,), p)
+                hx = rr.combine((hx,), (cx,), hp)
             else:
                 p = rr.mix(c[:, m:], sf[:, m:])
                 hp = rr.mix(c[:, m:], hsf[:, m:])

@@ -4,8 +4,8 @@ the small Hermitian eigenproblems and pencils, and the power method.
 
 Port of ``pcx/solvers/rayleigh_ritz.py`` (and ``rs.pencil_f64_embedding``).
 Blocks of vectors are (p, D) complex tensors, the vector index first.
-The helpers of the LOBPCG bodies (``gram_f64``, ``gram``, ``mix``,
-``colnorms``, ``scale_cols``, ``hermitize``, ``eigh_split``,
+The helpers of the LOBPCG bodies (``gram_f64``, ``gram``, ``combine``,
+``mix``, ``colnorms``, ``scale_cols``, ``hermitize``, ``eigh_split``,
 ``masked_svqb_drop``, and for the complex family ``masked_loewdin``,
 ``rayleigh_ritz`` and ``masked_mgs``) also take a leading lane axis,
 (L, p, D) blocks with (L, p) masks, for the lockstep k-point batch
@@ -33,6 +33,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from pcx_torch import tracing
+from pcx_torch.kernels.block_combine import (MAX_Q, MAX_ROWS, block_combine,
+                                             block_combine_plain)
 from pcx_torch.utils import all_reduce_sum, norms, real_dtype
 
 C128 = torch.complex128
@@ -99,10 +101,35 @@ def gram(x: torch.Tensor, y: torch.Tensor, reduce_axis=None) -> torch.Tensor:
     return gram_f64(x, y, reduce_axis=reduce_axis).to(x.dtype)
 
 
+def combine(blocks: Sequence[torch.Tensor], coeffs: Sequence[torch.Tensor],
+            addend: Optional[torch.Tensor] = None,
+            subtract: bool = False) -> torch.Tensor:
+    """out_j = addend_j + sum_b sum_i coeffs[b][i, j] blocks[b]_i (with
+    ``subtract``, addend_j minus the sum) for blocks (..., p_b, D),
+    coefficients (..., p_b, q) and an addend (..., q, D): the rows of all
+    blocks summed in order, the addend last.  Routed by dtype and size
+    alone: on the card a complex64 call within kernel K4's row and output
+    limits is one launch of K4, which reads the blocks where they lie, or
+    raises where K4 cannot read an operand (counter ``dense.k4``); a
+    complex64 call past those limits is K4's plain version, one
+    ``torch.matmul`` over the stacked blocks (``dense.matmul``), as is a
+    call in another dtype (complex128: the refine, ``f64_truth``) and every
+    CPU call."""
+    b0 = blocks[0]
+    if b0.is_cuda and b0.dtype == torch.complex64:
+        if (coeffs[0].shape[-1] <= MAX_Q
+                and sum(b.shape[-2] for b in blocks) <= MAX_ROWS):
+            out = block_combine(blocks, coeffs, addend, subtract)
+            tracing.count("dense.k4")
+            return out
+        tracing.count("dense.matmul")
+    return block_combine_plain(blocks, coeffs, addend, subtract)
+
+
 def mix(c: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """out_j = sum_i c[i, j] blocks_i; c (..., p, q), blocks (..., p, D) ->
-    (..., q, D) (twin of ``rayleigh_ritz.mix_pair``)."""
-    return torch.matmul(c.transpose(-2, -1), blocks)
+    (..., q, D) (twin of ``rayleigh_ritz.mix_pair``), by ``combine``."""
+    return combine((blocks,), (c,))
 
 
 def colnorms(x: torch.Tensor, reduce_axis=None,
@@ -183,17 +210,14 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     split = split_for(rdtype, svqb=True)
     lam_fac = 10.0 if rdtype == torch.float32 else 1e3
     hb = hblock
-    if len(against) > 1:
-        against = (torch.cat(tuple(against), dim=-2),)
-        if h_against:
-            h_against = (torch.cat(tuple(h_against), dim=-2),)
-    pairs = list(zip(against, h_against or [None] * len(against)))
     for pno in range(passes):
-        for base, hbase in pairs:
-            coeff = gram(base, block, reduce_axis)
-            block = block - mix(coeff, base)
-            if hb is not None and hbase is not None:
-                hb = hb - mix(coeff, hbase)
+        if against:
+            # one Gram per base (the rows of the Gram against the stacked
+            # bases): on the card no concatenation is built
+            coeffs = [gram(base, block, reduce_axis) for base in against]
+            block = combine(against, coeffs, block, subtract=True)
+            if hb is not None and h_against:
+                hb = combine(h_against, coeffs, hb, subtract=True)
         keep = mask[..., :, None] * mask[..., None, :]
         g = hermitize(gram_f64(block, block, reduce_axis=reduce_axis)) * keep
         if pno == 0:
@@ -340,9 +364,9 @@ def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
     for base, hbase in zip(against, h_against or [None] * len(against)):
         for _ in range(passes):
             coeff = gram(base, block, reduce_axis)
-            block = block - mix(coeff, base)
+            block = combine((base,), (coeff,), block, subtract=True)
             if hblock is not None and hbase is not None:
-                hblock = hblock - mix(coeff, hbase)
+                hblock = combine((hbase,), (coeff,), hblock, subtract=True)
     q = block.clone()
     hq = hblock.clone() if hblock is not None else None
     idx = torch.arange(m, device=block.device)
@@ -352,9 +376,9 @@ def masked_mgs(block: torch.Tensor, mask: torch.Tensor, drop_tol: float,
         wsel = ((idx < i).to(rdtype) * msk)[..., None]
         for _ in range(passes):
             coeff = gram(q, col, reduce_axis) * wsel
-            col = col - mix(coeff, q)
+            col = combine((q,), (coeff,), col, subtract=True)
             if hq is not None:
-                hcol = hcol - mix(coeff, hq)
+                hcol = combine((hq,), (coeff,), hcol, subtract=True)
         nrm = colnorms(col, reduce_axis, lanes=lanes)[..., 0]
         ok = msk[..., i] * (nrm > drop_tol).to(rdtype)
         scale = (ok / nrm.clamp(min=tiny))[..., None]
@@ -392,9 +416,9 @@ def project_off(block: torch.Tensor, basis: torch.Tensor,
     """Project the rows of ``block`` off the orthonormal rows of ``basis``
     (and apply the same combination to ``hblock`` with ``hbasis``)."""
     coeff = gram(basis, block)
-    block = block - mix(coeff, basis)
+    block = combine((basis,), (coeff,), block, subtract=True)
     if hblock is not None:
-        hblock = hblock - mix(coeff, hbasis)
+        hblock = combine((hbasis,), (coeff,), hblock, subtract=True)
     return block, hblock
 
 

@@ -5,7 +5,9 @@ Hermitian-tensor dielectrics on the card (complex64 against complex128
 applies, a complex128 cross-DoF sweep against the CPU's), the Davidson
 and ``"mixed"`` solver variants on the card against the CPU, the light
 refine against the complex128 refine, the two-grid lift ``resample3``
-against the CPU's, and the complex route's two DFTs.
+against the CPU's, the complex route's two DFTs, and kernel K4 (the dense
+algebra's block combinations) against its plain version and complex128 and
+on the solvers' paths.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -24,8 +26,9 @@ import torch
 from pcx_torch import bandstructure as bs
 from pcx_torch.bandstructure import KPointSolver
 from pcx_torch.config import ProblemConfig
-from pcx_torch.kernels import axis_dft, gram9, resid_precond
+from pcx_torch.kernels import axis_dft, block_combine, gram9, resid_precond
 from pcx_torch.kernels.axis_dft import axis_dft_plain, dft_matrix
+from pcx_torch.kernels.block_combine import block_combine_plain
 from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.operators import dielectric
@@ -618,9 +621,155 @@ def test_complex_impl_solve_batch_lanes_on_cuda_match_serial():
     res = kps.solve_batch(alphas, seed=4)
     n1 = kmod.launches()
     assert axis_dft.launches_by_batch.get(9 * m, 0) > b0.get(9 * m, 0)
-    assert all(n1[k] == n0[k] for k in n0 if k != "axis_dft")
+    # K2 and K4 (the dense algebra) serve the complex path; K1, K3 not
+    assert all(n1[k] == n0[k] for k in n0
+               if k not in ("axis_dft", "block_combine"))
+    assert n1["block_combine"] > n0["block_combine"]
     for i, (a, r) in enumerate(zip(alphas, res)):
         s = kps.solve(a, seed=4 + i)
         assert r.status in (1, 5) and s.status in (1, 5)
         assert not r.report.spurious
         np.testing.assert_allclose(r.omega_re, s.omega_re, atol=1e-4)
+
+
+# K4 at the main path's shapes: slices of a stacked (L, 48, D) block as
+# inputs, N=120; the rows of each input block, and the output rows q
+K4_SPLITS = [(16,), (32,), (16, 16, 16)]
+
+
+def _k4_operands(dev, seed, lanes, rows, q, d, addend=False):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = lambda *s: torch.randn(s, generator=gen, device=dev,
+                               dtype=torch.complex64)
+    lead = (lanes,) if lanes > 1 else ()
+    stack = c(*lead, 48, d)
+    offs = np.cumsum((0,) + rows)
+    blocks = tuple(stack[..., o:o + r, :] for o, r in zip(offs, rows))
+    coeffs = tuple(c(*lead, r, q) for r in rows)
+    return blocks, coeffs, (c(*lead, q, d) if addend else None)
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("q", [4, 8, 10, 16])
+@pytest.mark.parametrize("rows", K4_SPLITS, ids=lambda r: "+".join(map(str, r)))
+def test_k4_cuda_matches_plain(rows, q, lanes):
+    """K4 against its plain version (cuBLAS cgemm, f32) at the main path's
+    shapes: alone and with an addend subtracted."""
+    dev = _cuda()
+    d = 3 * 120 ** 3
+    blocks, coeffs, add = _k4_operands(dev, q + lanes, lanes, rows, q, d,
+                                       addend=True)
+    for kw in ({}, {"addend": add, "subtract": True}):
+        n0 = block_combine.launches
+        got = block_combine(blocks, coeffs, **kw)
+        want = block_combine_plain(blocks, coeffs, **kw)
+        torch.cuda.synchronize()
+        assert block_combine.launches == n0 + 1
+        assert got.shape == want.shape and got.is_contiguous()
+        # f32 on both sides, another order of the sum over the rows
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("d,rows,q", [
+    (3 * 75 ** 3, (16, 16), 16),          # odd D: the 8-byte load path
+    (3 * 120 ** 3 + 2, (16,), 20),        # a ragged last tile; q in chunks
+    (1000, (100, 60, 32), 64),            # 192 rows: the most shared
+    (6, (3,), 1)])                        # less than one tile
+def test_k4_cuda_tails_and_load_paths(d, rows, q):
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d)
+    c = lambda *s: torch.randn(s, generator=gen, device=dev,
+                               dtype=torch.complex64)
+    stack = c(sum(rows) + 1, d)[1:]     # odd row offset: 8-byte aligned
+    offs = np.cumsum((0,) + rows)
+    blocks = tuple(stack[o:o + r] for o, r in zip(offs, rows))
+    coeffs = tuple(c(r, q) for r in rows)
+    add = c(q, d)
+    for kw in ({}, {"addend": add, "subtract": True}):
+        got = block_combine(blocks, coeffs, **kw)
+        want = block_combine_plain(blocks, coeffs, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rows,addend", [((16, 16, 16), False),
+                                         ((16, 16), True), ((16,), False)])
+def test_k4_cuda_error_vs_complex128(rows, addend):
+    """K4's error against complex128 is no worse than 1.5x that of one
+    torch.matmul cgemm over the stacked complex64 inputs, the addend
+    subtracted after it (relative Frobenius norm of the difference)."""
+    dev = _cuda()
+    d = 3 * 120 ** 3
+    blocks, coeffs, add = _k4_operands(dev, 7, 1, rows, 16, d, addend)
+    kw = {"addend": add, "subtract": True} if addend else {}
+    exact = block_combine_plain(
+        [b.to(torch.complex128) for b in blocks],
+        [c.to(torch.complex128) for c in coeffs],
+        None if add is None else add.to(torch.complex128), addend)
+    norm = float(torch.linalg.vector_norm(exact))
+
+    def err(out):
+        return float(torch.linalg.vector_norm(out.to(torch.complex128)
+                                              - exact)) / norm
+
+    lib = torch.matmul(torch.cat(coeffs, -2).mT, torch.cat(blocks, -2))
+    err_k = err(block_combine(blocks, coeffs, **kw))
+    err_lib = err(lib if add is None else add - lib)
+    assert err_k <= 1.5 * err_lib, (err_k, err_lib)
+
+
+@pytest.mark.parametrize("opts", [{}, {"rr_gram": "pallas"},
+                                  {"solver_impl": "complex"}],
+                         ids=["xla", "pallas", "complex"])
+def test_k4_takes_every_combination_of_a_complex64_solve(opts):
+    """A complex64 solve with the light refine on the card: every block
+    combination launches K4 (``dense.matmul`` stays 0) and ``k4.bytes``
+    counts its launches."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    dev = _cuda()
+    opts = dict(opts)
+    impl = opts.pop("solver_impl", "rs")
+    kps = KPointSolver(ProblemConfig(n=24, lattice="fcc", nev=6),
+                       device=dev, dtype=torch.complex64, refine="light",
+                       solver_impl=impl, solver_opts=opts)
+    kmod.reset_launches()
+    res = kps.solve(np.array([np.pi, 0.0, 0.0]))
+    counts = tracing.counts()
+    assert res.status in (1, 5)
+    assert counts.get("dense.matmul", 0) == 0
+    assert counts["dense.k4"] == block_combine.launches > 0
+    assert counts["k4.bytes"] > 0
+
+
+def test_k4_route_raises_where_k4_cannot_read_and_counts_past_its_limits():
+    """``rr.combine`` on the card routes by dtype and size alone: a
+    complex64 call within K4's limits whose operand K4 cannot read (a
+    non-unit stride along D, a lazily conjugated coefficient) raises
+    rather than taking ``torch.matmul``; a complex64 call past the row
+    limit takes it and counts ``dense.matmul``; complex128 takes it
+    uncounted."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    from pcx_torch.kernels.block_combine import MAX_ROWS
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    c = lambda *s: torch.randn(s, generator=gen, device=dev,
+                               dtype=torch.complex64)
+    with pytest.raises(ValueError, match="stride"):
+        rr.combine((c(8, 2 * 640)[:, ::2],), (c(8, 4),))
+    with pytest.raises(ValueError, match="conjugated"):
+        rr.combine((c(8, 640),), (c(8, 4).conj(),))
+    kmod.reset_launches()
+    big, coef = c(MAX_ROWS + 1, 640), c(MAX_ROWS + 1, 4)
+    got = rr.combine((big,), (coef,))
+    rr.combine((big.to(torch.complex128),), (coef.to(torch.complex128),))
+    torch.testing.assert_close(got, coef.mT @ big)
+    assert tracing.counts().get("dense.matmul") == 1
+    assert tracing.counts().get("dense.k4", 0) == 0
+    assert block_combine.launches == 0

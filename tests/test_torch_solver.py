@@ -126,6 +126,119 @@ def test_masked_svqb_drop_matches_rayleigh_ritz(rng, with_against):
     np.testing.assert_allclose(got[1], want[1], rtol=1e-10)
 
 
+K4_D = 3 * 8 ** 3
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("addend", [None, "add", "subtract"])
+@pytest.mark.parametrize("nblocks", [1, 2, 3])
+def test_block_combine_plain_matches_stacked_matmul(rng, nblocks, addend,
+                                                    lanes):
+    """K4's plain version (``rr.combine`` on the CPU) against one
+    ``torch.matmul`` over the concatenated blocks, complex128: the blocks
+    slices of one (L, 48, D) stack, as in the Rayleigh-Ritz update."""
+    lead = (3,) if lanes else ()
+    stack = torch.as_tensor(_blk(rng, *lead, 48, K4_D))
+    rows = [16, 24, 8][:nblocks]
+    offs = np.cumsum([0] + rows)
+    blocks = [stack[..., o:o + r, :] for o, r in zip(offs, rows)]
+    coeffs = [torch.as_tensor(_blk(rng, *lead, r, 10)) for r in rows]
+    want = torch.matmul(torch.cat(coeffs, -2).mT, torch.cat(blocks, -2))
+    add = None
+    if addend is not None:
+        add = torch.as_tensor(_blk(rng, *lead, 10, K4_D))
+        want = add - want if addend == "subtract" else add + want
+    got = trr.combine(blocks, coeffs, add, subtract=addend == "subtract")
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=ALG_TOL * float(want.abs().max()))
+
+
+def test_block_combine_wrapper_refuses_what_the_kernel_cannot_take(rng):
+    """The wrapper checks before it takes the plain version: a non-unit
+    stride along D, another dtype, shapes past the kernel's limits; slices
+    of a stacked block pass."""
+    from pcx_torch.kernels import block_combine as k4
+    from pcx_torch.kernels.block_combine import MAX_Q, MAX_ROWS, problem
+
+    def c64(*s):
+        return torch.as_tensor(_blk(rng, *s)).to(torch.complex64)
+
+    stack, c = c64(2, 48, K4_D), c64(2, 48, 16)
+    ok = ((stack[:, 16:], stack[:, :16]), (c[:, 16:], c[:, :16]))
+    assert problem(*ok) is None
+    torch.testing.assert_close(k4(*ok), c.mT @ stack, rtol=0, atol=1e-4)
+    bad = [
+        (((c64(16, 2 * K4_D)[:, ::2],), (c64(16, 4),)), {}, "stride"),
+        (((stack.to(torch.complex128),), (c.to(torch.complex128),)), {},
+         "complex64"),
+        (((c64(MAX_ROWS + 1, 64),), (c64(MAX_ROWS + 1, 4),)), {}, "limits"),
+        (((c64(8, 64),), (c64(8, MAX_Q + 1),)), {}, "limits"),
+        (((c64(8, 64),), (c64(8, 4),)), {"addend": c64(5, 64)}, "addend"),
+        (((c64(8, 64),) * 4, (c64(8, 4),) * 4), {}, "blocks"),
+        (((c64(8, 64),), (c64(8, 4).conj(),)), {}, "conjugated"),
+    ]
+    for args, kw, why in bad:
+        assert why in problem(*args, kw.get("addend"))
+        with pytest.raises(ValueError, match=why):
+            k4(*args, **kw)
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+def test_block_combine_entry_args_address_the_operands(rng, lanes):
+    """The integer array the C entry reads (csrc/block_combine.cu: p_b at
+    5 + b, the blocks' lane and row strides at 8 + 2b, the coefficients'
+    at 14 + 3b, the addend's at 23) addresses each operand where it lies:
+    ``as_strided`` with those strides at the operand's pointer gives it
+    back."""
+    from pcx_torch.kernels.block_combine import entry_args
+    lead = (3,) if lanes else ()
+    stack = torch.as_tensor(_blk(rng, *lead, 48, 64)).to(torch.complex64)
+    coef = torch.as_tensor(_blk(rng, *lead, 48, 16)).to(torch.complex64)
+    add = torch.as_tensor(_blk(rng, *lead, 16, 64)).to(torch.complex64)
+    blocks = (stack[..., 16:, :], stack[..., :16, :])
+    coeffs = (coef[..., 16:, :], coef[..., :16, :])
+    ptrs, meta = entry_args(blocks, coeffs, add, True, add)
+    assert meta[:5] == [2, 3 if lanes else 1, 16, 64, 1] and len(meta) == 25
+    assert ptrs[2] == ptrs[5] == 0 and len(ptrs) == 8
+
+    def at(base, ptr, shape, strides):
+        off = base.storage_offset() + (ptr - base.data_ptr()) // 8
+        return torch.as_strided(base, shape, strides, off)
+
+    n_l = 3 if lanes else 1
+    for k, (b, c) in enumerate(zip(blocks, coeffs)):
+        p = meta[5 + k]
+        ls, rs = meta[8 + 2 * k:10 + 2 * k]
+        got = at(stack, ptrs[k], (n_l, p, 64), (ls, rs, 1))
+        assert torch.equal(got.reshape(b.shape), b)
+        ls, rs, cs = meta[14 + 3 * k:17 + 3 * k]
+        got = at(coef, ptrs[3 + k], (n_l, p, 16), (ls, rs, cs))
+        assert torch.equal(got.reshape(c.shape), c)
+    got = at(add, ptrs[6], (n_l, 16, 64), (meta[23], meta[24], 1))
+    assert torch.equal(got.reshape(add.shape), add)
+    ptrs, meta = entry_args(blocks, coeffs, None, False, add)
+    assert ptrs[6] == 0 and meta[4] == 0 and meta[23:] == [0, 0]
+
+
+def test_masked_svqb_drop_two_against_blocks_equal_the_stacked_base(rng):
+    """``against=(x, w)`` projects with one Gram per base and no
+    concatenation: the result of the concatenated base, complex128."""
+    d = K4_D
+    base = np.linalg.qr(_blk(rng, d, 7))[0].T.copy()
+    x, w = torch.as_tensor(base[:4]), torch.as_tensor(base[4:])
+    hx, hw = torch.as_tensor(_blk(rng, 4, d)), torch.as_tensor(_blk(rng, 3, d))
+    b, hb = torch.as_tensor(_blk(rng, 5, d)), torch.as_tensor(_blk(rng, 5, d))
+    mask = torch.ones(5, dtype=torch.float64)
+    got = trr.masked_svqb_drop(b, mask, 1e-6, hblock=hb, against=(x, w),
+                               h_against=(hx, hw))
+    want = trr.masked_svqb_drop(b, mask, 1e-6, hblock=hb,
+                                against=(torch.cat((x, w)),),
+                                h_against=(torch.cat((hx, hw)),))
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=0,
+                                   atol=ALG_TOL * float(wnt.abs().max()))
+
+
 def test_eigh_split_and_pencil_match_embeddings(rng):
     a = _blk(rng, 12, 12)
     t = a + a.conj().T
