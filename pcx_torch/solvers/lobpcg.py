@@ -15,7 +15,9 @@ blocks stay on the device, and once per iteration the residual norms and
 Ritz values come back to the host in one transfer, where the status rules
 of the JAX while-loop run on numpy scalars in the iterate's real dtype.
 The small dense problems run in complex128 with ``torch.linalg`` (no real
-embedding).
+embedding).  ``lobpcg_sep_lanes`` counts what ``lobpcg_rs`` counts from the
+host's bookkeeping: each lane's stop by its status (``STOP_COUNTERS``) and
+the active columns of every iteration (``lobpcg.active_cols``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from pcx_torch import tracing
 from pcx_torch.config import MAXITER, TOL
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.utils import real_dtype
@@ -52,6 +55,10 @@ class SolveResult(NamedTuple):
 
 
 _NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
+
+# The counter of a lane's stop, by its final status (``pcx_torch.tracing``).
+STOP_COUNTERS = {s: f"stop.{s.name.lower()}" for s in Status
+                 if s != Status.RUNNING}
 
 
 def col_normalize(block: torch.Tensor, eps: float, reduce_axis=None,
@@ -353,7 +360,10 @@ def lobpcg_sep_lanes(
 
         # ---- step: W = P R on the active columns, P, Rayleigh-Ritz --------
         ones = torch.ones((n_run, m), dtype=rdtype, device=dev)
-        active = (torch.as_tensor(np.stack(actives), device=dev).to(rdtype)
+        active_h = np.stack(actives)
+        tracing.count("lobpcg.active_cols",
+                      int(active_h.sum()) if locking else n_run * m)
+        active = (torch.as_tensor(active_h, device=dev).to(rdtype)
                   if locking else ones)
         acol = active[..., None]
         w = p_func((acol * r).reshape((n_run, m) + shape[1:]), run)
@@ -411,6 +421,7 @@ def lobpcg_sep_lanes(
         if status == Status.RUNNING:
             status = (Status.NAN if bool(torch.isnan(lam).any())
                       else Status.MAXITER)
+        tracing.count(STOP_COUNTERS[status])
         out.append(SolveResult(lambdas=lam - shift, x=xl.reshape(shape),
                                iterations=its, status=int(status),
                                res_history=trks[lane].res_his))

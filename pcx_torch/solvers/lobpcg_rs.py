@@ -21,6 +21,10 @@ on CUDA checks its error flag on the host, which synchronizes).  Its spans
 (``pcx_torch.tracing``) are ``pcx.precond``, ``pcx.step`` (the host's
 bookkeeping from the read-back to the uploads of the masks), ``pcx.svqb``
 and ``pcx.rr``; its syncs count as ``sync.readback`` and ``sync.upload``.
+From what the host already holds it counts each lane's stop by its status
+(``stop.converged``, ``stop.floor``, ``stop.maxiter``, ``stop.blowup``,
+``stop.nan``) and, each iteration, the lanes' active (unlocked) columns
+(``lobpcg.active_cols``).
 
 ``lobpcg_sep_rs_lanes`` is the lockstep k-point batch, JAX's vmapped
 ``_jitted_batch_rs``: L problems as lanes of one loop, one read-back and
@@ -45,8 +49,8 @@ from pcx_torch import tracing
 from pcx_torch.config import MAXITER, TOL
 from pcx_torch.kernels.gram9 import gram9, gram9_lanes
 from pcx_torch.solvers import rayleigh_ritz as rr
-from pcx_torch.solvers.lobpcg import (SolveResult, Status, _NP_REAL,
-                                      _per_lane, lobpcg_gep)
+from pcx_torch.solvers.lobpcg import (STOP_COUNTERS, SolveResult, Status,
+                                      _NP_REAL, _per_lane, lobpcg_gep)
 from pcx_torch.utils import real_dtype
 
 
@@ -476,6 +480,7 @@ def lobpcg_sep_rs_lanes(
                 break
             n_run = len(run)
             active_h = np.stack(actives)
+            tracing.count("lobpcg.active_cols", int(active_h.sum()))
 
             # ---- step: W = P R on the active columns, P, Rayleigh-Ritz ----
             wc = max(width(it, int(a.sum())) for a in active_h)
@@ -574,6 +579,7 @@ def lobpcg_sep_rs_lanes(
             tracing.count("sync.result")
             status = (Status.NAN if bool(torch.isnan(lam).any())
                       else Status.MAXITER)
+        tracing.count(STOP_COUNTERS[status])
         out.append(SolveResult(lambdas=lam, x=xl.reshape(shape),
                                iterations=its, status=int(status),
                                res_history=trks[lane].res_his))

@@ -307,7 +307,7 @@ def _x0(ts, alpha, seed=0):
                                        + 1j * rng.random(shape))
 
 
-@pytest.mark.parametrize("lattice", ["sc_curv", "fcc"])
+@pytest.mark.parametrize("lattice", ["sc_curv", "fcc", "bcc_dg"])
 def test_complex128_solve_matches_pcx(lattice):
     alpha = np.array([np.pi, 0.2, 0.0])
     js, ts = _pair_solvers(lattice, 8, 4, jnp.complex128, torch.complex128)

@@ -16,6 +16,8 @@ from pcx_torch import kernels, tracing
 from pcx_torch.bandstructure import KPointSolver
 from pcx_torch.config import TYPE_PSEUDO_CROSSDOF, ProblemConfig
 from pcx_torch.operators import maxwell
+from pcx_torch.solvers import lobpcg_rs
+from pcx_torch.solvers.lobpcg import Status
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs
 from pcx_torch.utils import generator
 
@@ -143,3 +145,49 @@ def test_reset_launches_clears_the_counters_and_spans():
     kernels.reset_launches()
     assert tracing.counts() == {} and tracing.totals() == {}
     assert set(kernels.launches().values()) == {0}
+
+
+def test_stop_and_active_column_counters_read_only_the_host(monkeypatch):
+    """Two lanes of ``lobpcg_sep_rs_lanes`` on a diagonal operator, one
+    stopped by its limit: one ``stop.*`` a lane, by its final status;
+    ``lobpcg.active_cols`` the sum of the trackers' active masks; and the
+    loop's reads of device values are still its ``sync.readback`` and
+    ``sync.result``: the two counters read nothing back."""
+    masks = []
+    update = lobpcg_rs._Tracker.update
+
+    def tracked(self, it, res, lam):
+        st, act = update(self, it, res, lam)
+        if st == Status.RUNNING:
+            masks.append(act.copy())
+        return st, act
+
+    reads = []
+
+    def reading(name):
+        real = getattr(torch.Tensor, name)
+
+        def read(self, *a, **kw):
+            reads.append(name)
+            return real(self, *a, **kw)
+        return read
+
+    d = torch.linspace(1.0, 40.0, 300, dtype=torch.float64)
+    ops = torch.stack((d, 1.3 * d)).to(torch.complex128)
+    x0 = torch.randn((6, 300), dtype=torch.complex128,
+                     generator=torch.Generator().manual_seed(5))
+    monkeypatch.setattr(lobpcg_rs._Tracker, "update", tracked)
+    for name in ("cpu", "item", "tolist", "__bool__", "__int__",
+                 "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, reading(name))
+    out = lobpcg_rs.lobpcg_sep_rs_lanes(
+        lambda a, lanes: ops[list(lanes), None] * a, lambda a, lanes: a,
+        torch.stack((x0, x0)), 3, tol=1e-8, maxiter=200, limit=[4, None])
+    monkeypatch.undo()
+    got = tracing.counts()
+    stops = {k: v for k, v in got.items() if k.startswith("stop.")}
+    assert [r.status for r in out] == [Status.MAXITER, Status.CONVERGED]
+    assert stops == {"stop.maxiter": 1, "stop.converged": 1}
+    assert got["lobpcg.active_cols"] == int(sum(a.sum() for a in masks))
+    assert 0 < got["lobpcg.active_cols"] < 6 * sum(r.iterations for r in out)
+    assert len(reads) == got["sync.readback"] + got.get("sync.result", 0)
