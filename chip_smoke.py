@@ -42,7 +42,11 @@ failure ends the run with a non-zero exit:
              against its plain version and complex128 (no worse than 1.5x
              the error of one cuBLAS GEMM over the concatenated blocks),
              timed beside its bound, the plain version, one cuBLAS call and
-             the same with the concatenation.
+             the same with the concatenation; then K5 op_blocks at N=120,
+             m=16 (pre, post, post with the penalty and a shift), each bit
+             for bit against the eager composition it replaces, its error
+             against complex128, timed beside its bytes bound and that
+             composition (``library_ms``).
 6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
@@ -252,7 +256,8 @@ rr_gram="xla" route), reset again just before phase 9 and read after it
 (K1, K2, K3 and K4 must all have launched; K4 then joins every later check
 that all the serial kernels launched); after both, the counter
 ``dense.matmul`` (complex64 block combinations past K4's limits, which
-take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0, and once
+take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0; K5
+(``op_pre``, ``op_post``) must launch wherever K4 must; and once
 more before phase 11: read after its sweep (K1, K2, K3) and after its
 single solves (K1, K2), and around each solve of phase 13, around phase
 14, around each solve of phase 16, around phase 17 (K1 and K2 must
@@ -314,7 +319,8 @@ FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 # The wrappers of the one-point solve; their lane forms run in phase 22.
 SERIAL_KERNELS = ("resid_precond", "axis_dft", "gram9")
 # The kernels of the default route (rr_gram="xla"), phases 7-8.
-PATH_KERNELS = ("resid_precond", "axis_dft", "block_combine")
+PATH_KERNELS = ("resid_precond", "axis_dft", "block_combine", "op_pre",
+                "op_post")
 # Phase 22: the lockstep k-point batch.
 LANES_K = 4                  # lanes of the K1 / K3 lane forms (phases 3, 5)
 LANE_COUNTS = (1, 2, 4)      # (a): lanes of the timed groups
@@ -899,6 +905,71 @@ def phase_k4(gen, dev, peak: float, m: int = 16) -> dict:
     return {"name": "block_combine", "route": "cuda", "arith": FP32_FMA,
             "source": "pcx_torch/kernels/csrc/block_combine.cu",
             "replaces": None, **upd, "calls": out}
+
+
+def phase_k5(gen, dev, m: int = 16) -> dict:
+    """K5 op_blocks at the operator's shapes, N=120 and m=16: pre (A(-conj
+    d) x), post without the penalty (``ama``) and post with it and a shift
+    (``ama_bb``).  Each against its plain version, which is the eager
+    composition it replaces, bit for bit (``torch.equal``), and its error
+    against complex128 beside the plain version's; timed beside its bytes
+    bound and the plain composition (``library_ms``: the eager PyTorch
+    calls the operator made before K5)."""
+    from pcx_torch.kernels.op_blocks import (POST, POST_PENALTY, PRE,
+                                             bytes_moved, op_post,
+                                             op_post_plain, op_pre,
+                                             op_pre_plain)
+    from pcx_torch.operators.symbols import HermSymbol
+    shape, sym_shape = (m, 3, N, N, N), (3, N, N, N)
+    c = lambda sh: torch.randn(sh, generator=gen, device=dev,
+                               dtype=torch.complex64)
+    x, z, d_a = c(shape), c(shape), c(sym_shape)
+    b = HermSymbol(torch.rand(sym_shape, generator=gen, device=dev),
+                   c(sym_shape))
+    shift = 0.731
+    w = torch.complex128
+    b128 = HermSymbol(b.diag.double(), b.sdiag.to(w))
+    calls = {
+        "pre": (PRE, lambda: op_pre(x, d_a), lambda: op_pre_plain(x, d_a),
+                lambda: op_pre_plain(x.to(w), d_a.to(w))),
+        "post": (POST, lambda: op_post(z, d_a), lambda: op_post_plain(z, d_a),
+                 lambda: op_post_plain(z.to(w), d_a.to(w))),
+        "post_penalty": (POST_PENALTY, lambda: op_post(z, d_a, x, b, shift),
+                         lambda: op_post_plain(z, d_a, x, b, shift),
+                         lambda: op_post_plain(z.to(w), d_a.to(w), x.to(w),
+                                               b128, shift)),
+    }
+    out = {}
+    for name, (kind, k5_fn, plain_fn, exact_fn) in calls.items():
+        got, want = k5_fn(), plain_fn()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        exact = exact_fn()
+        norm = float(torch.linalg.vector_norm(exact))
+        err_k = float(torch.linalg.vector_norm(got.to(w) - exact)) / norm
+        err_p = float(torch.linalg.vector_norm(want.to(w) - exact)) / norm
+        del got, want, exact
+        ms = cuda_ms(k5_fn)
+        lib_ms = cuda_ms(plain_fn)
+        nbytes = bytes_moved(kind, x, d_a)
+        b_ms = 1e3 * nbytes / HBM_BYTES_S
+        print(f"phase k5 {name}: {m} columns at N={N}: equal to the eager "
+              f"composition {same}; relative error vs complex128 kernel "
+              f"{err_k:.3e} plain {err_p:.3e}; kernel {ms:.3f} ms, eager "
+              f"composition {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({nbytes} "
+              f"bytes) = {100 * b_ms / ms:.1f}% reached", flush=True)
+        if not same:
+            fail(f"K5 {name} differs from the eager composition")
+        out[name] = {"ms": ms, "plain_ms": lib_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": "bytes",
+                     "share": b_ms / ms, "err_c128": err_k,
+                     "err_c128_plain": err_p}
+    del x, z, d_a, b, b128, calls
+    torch.cuda.empty_cache()
+    post = out["post_penalty"]
+    return {"name": "op_post", "route": "cuda", "arith": FP32_FMA,
+            "source": "pcx_torch/kernels/csrc/op_blocks.cu",
+            "replaces": None, **post, "calls": out}
 
 
 def phase_operator(gen, dev, n: int = N, diel_type: str = "chiral"):
@@ -2956,6 +3027,7 @@ def main() -> None:
     lane_kernels = [phase_k1_lanes(gen, dev, peak, kernels[0]["ms"]),
                     phase_k3_lanes(gen, dev, peak, kernels[2]["ms"])]
     kernels.append(phase_k4(gen, dev, peak))
+    kernels.append(phase_k5(gen, dev))
     phase_operator(gen, dev)
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2963,7 +3035,8 @@ def main() -> None:
     single = phase_single(dev)
     counts = kmod.launches()
     if not all(counts[k] for k in PATH_KERNELS):
-        fail(f"K1, K2 or K4 never launched in the single point: {counts}")
+        fail(f"K1, K2, K4 or K5 never launched in the single point: "
+             f"{counts}")
     warm_ms = phase_warm(dev)
     counts = kmod.launches()
     print(f"phase launches: {counts} in the solves of phases 7-8 "
@@ -2971,7 +3044,7 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
           flush=True)
     if not all(counts[k] for k in PATH_KERNELS):
-        fail(f"K1, K2 or K4 never launched in the solves: {counts}")
+        fail(f"K1, K2, K4 or K5 never launched in the solves: {counts}")
     dense_routes("the solves of phases 7-8")
     for rec in kernels:
         rec["launches_solves"] = counts[rec["name"]]

@@ -1,12 +1,15 @@
 """The port's hand-written CUDA kernels (sm_90a), one per Pallas TPU kernel
-of ``pcx/operators/pallas_kernels.py`` and one of the port's own:
+of ``pcx/operators/pallas_kernels.py`` and two of the port's own:
 
 * K1 ``resid_precond`` — replaces ``fused_resid_precond``;
 * K2 ``axis_dft``      — replaces ``axis_dft_pairs`` (an FFT on the card,
   where the TPU contracts with the dense DFT matrix);
 * K3 ``gram9``         — replaces ``fused_gram9_pairs`` (``rr_gram="pallas"``);
 * K4 ``block_combine`` — replaces no Pallas kernel: the dense algebra's block
-  combinations (JAX leaves them to XLA), one pass over blocks where they lie.
+  combinations (JAX leaves them to XLA), one pass over blocks where they lie;
+* K5 ``op_blocks``     — replaces no Pallas kernel: the operator's curl and
+  penalty block multiplies on either side of K2 (JAX leaves them to XLA),
+  two entry points ``op_pre`` and ``op_post``, one pass each.
 
 K1 and K3 also have lane forms for the lockstep k-point batch, the same
 kernels over L problems in one launch: ``resid_precond_lanes`` and
@@ -15,8 +18,8 @@ kernels over L problems in one launch: ``resid_precond_lanes`` and
 Each wrapper counts its launches in a plain integer attribute
 (``resid_precond.launches``), incremented only where the kernel launches;
 K2 also counts them by its batch B (``axis_dft.launches_by_batch``, 3 m
-in an operator apply on m columns, 3 L m over L lanes); K4 adds the bytes
-of each launch to the program counter ``k4.bytes``.
+in an operator apply on m columns, 3 L m over L lanes); K4 and K5 add the
+bytes of each launch to the program counters ``k4.bytes`` and ``k5.bytes``.
 ``reset_launches`` also resets the program's other counters and span
 totals (``pcx_torch.tracing``).
 """
@@ -25,10 +28,11 @@ from pcx_torch import tracing
 from pcx_torch.kernels.axis_dft import axis_dft
 from pcx_torch.kernels.block_combine import block_combine
 from pcx_torch.kernels.gram9 import gram9, gram9_lanes
+from pcx_torch.kernels.op_blocks import op_post, op_pre
 from pcx_torch.kernels.resid_precond import resid_precond, resid_precond_lanes
 
 WRAPPERS = (resid_precond, axis_dft, gram9, resid_precond_lanes, gram9_lanes,
-            block_combine)
+            block_combine, op_pre, op_post)
 
 
 def reset_launches() -> None:

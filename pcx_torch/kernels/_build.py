@@ -45,6 +45,7 @@ SIGNATURES = {
     "pcx_gram9": ([_P] * 8 + [_I, _I, _LL, _I, _P], _I),
     "pcx_gram9_chunks": ([_LL, _I], _LL),
     "pcx_block_combine": ([_P, _P, _P], _I),
+    "pcx_op_blocks": ([_P, _P, ctypes.c_float, _P], _I),
 }
 
 

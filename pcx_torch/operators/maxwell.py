@@ -8,7 +8,10 @@ Port of ``pcx/operators/maxwell.py`` with ``rs.ama_p`` / ``rs.ama_bb_p``:
 The LOBPCG block lives in Fourier space, so one apply costs one forward and
 one inverse 3-D DFT around the physical-space dielectric; the penalty and
 the preconditioner are zero-FFT block multiplies
-(reference: AMA / AMA_BB, paper_2/pcfft.py:130-181).
+(reference: AMA / AMA_BB, paper_2/pcfft.py:130-181).  On the card a
+complex64 apply runs the block multiplies on either side of the DFTs as
+kernel K5's two passes (``kernels/op_blocks.py``), the penalty and the
+shift inside the second.
 
 ``MaxwellProblem`` (an ``nn.Module``), ``assemble_symbols`` and
 ``assemble_problem`` assemble one k-point from the full-array symbols, as
@@ -27,9 +30,10 @@ from torch import nn
 
 from pcx_torch import lattices, tracing
 from pcx_torch.config import SCAL, ProblemConfig, set_relaxation
+from pcx_torch.kernels import op_blocks
 from pcx_torch.operators import dielectric as diel_mod
 from pcx_torch.operators import symbols as sym
-from pcx_torch.operators.blocks import a_block, h_block
+from pcx_torch.operators.blocks import h_block
 from pcx_torch.operators.dft import DFTMats, dft3
 from pcx_torch.operators.symbols import HermSymbol
 from pcx_torch.utils import real_dtype
@@ -55,9 +59,16 @@ def _count_apply(x: torch.Tensor) -> None:
     tracing.count("op.columns", math.prod(x.shape[:-4]))
 
 
-def _ama(x: torch.Tensor, d_a: torch.Tensor, diel,
-         dft: Optional[DFTMats]) -> torch.Tensor:
-    y = a_block(x, -d_a.conj())
+def _ama(x: torch.Tensor, d_a: torch.Tensor, diel, dft: Optional[DFTMats],
+         b: Optional[HermSymbol] = None, shift=0.0) -> torch.Tensor:
+    """The apply of ``ama`` (``b`` None) or ``ama_bb``: the block multiplies
+    on either side of the DFTs are K5's two passes (``op_pre``, ``op_post``)
+    for a complex64 block on the card, which launch or raise on operands
+    outside K5's layout; complex128 and the CPU take their eager
+    composition (``op_pre_plain``, ``op_post_plain``), which K5 matches bit
+    for bit."""
+    k5 = x.is_cuda and x.dtype == torch.complex64
+    y = (op_blocks.op_pre if k5 else op_blocks.op_pre_plain)(x, d_a)
     # the lanes of a k-point batch fold into the column axis around the
     # shared dielectric and DFT (one K2 pass over all lanes' columns)
     lead = y.shape[:-4]
@@ -67,7 +78,8 @@ def _ama(x: torch.Tensor, d_a: torch.Tensor, diel,
         y = diel(y)
     y = (torch.fft.ifftn(y, dim=_SPATIAL) if dft is None
          else dft3(y, dft, inverse=True))
-    return a_block(y.reshape(lead + y.shape[-4:]), d_a)
+    post = op_blocks.op_post if k5 else op_blocks.op_post_plain
+    return post(y.reshape(lead + y.shape[-4:]), d_a, x, b, shift)
 
 
 def ama_bb(x: torch.Tensor, d_a: torch.Tensor, b: HermSymbol, diel,
@@ -78,10 +90,7 @@ def ama_bb(x: torch.Tensor, d_a: torch.Tensor, b: HermSymbol, diel,
     as ``ama``."""
     with tracing.span("pcx.op"):
         _count_apply(x)
-        y = _ama(x, d_a, diel, dft) + h_block(x, b)
-        if isinstance(shift, torch.Tensor) or shift != 0.0:
-            y = y + shift * x
-        return y
+        return _ama(x, d_a, diel, dft, b, shift)
 
 
 class MaxwellProblem(nn.Module):

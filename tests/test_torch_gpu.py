@@ -6,8 +6,9 @@ applies, a complex128 cross-DoF sweep against the CPU's), the Davidson
 and ``"mixed"`` solver variants on the card against the CPU, the light
 refine against the complex128 refine, the two-grid lift ``resample3``
 against the CPU's, the complex route's two DFTs, and kernel K4 (the dense
-algebra's block combinations) against its plain version and complex128 and
-on the solvers' paths.
+algebra's block combinations) and kernel K5 (the operator's block
+multiplies around K2) against their plain versions and complex128 and on
+the solvers' paths.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -32,6 +33,7 @@ from pcx_torch.kernels.block_combine import block_combine_plain
 from pcx_torch.kernels.gram9 import gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.operators import dielectric
+from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.dft import dft3, dft_mats, resample3, upsample_mat
 from pcx_torch.solvers import rayleigh_ritz as rr
 
@@ -621,10 +623,11 @@ def test_complex_impl_solve_batch_lanes_on_cuda_match_serial():
     res = kps.solve_batch(alphas, seed=4)
     n1 = kmod.launches()
     assert axis_dft.launches_by_batch.get(9 * m, 0) > b0.get(9 * m, 0)
-    # K2 and K4 (the dense algebra) serve the complex path; K1, K3 not
-    assert all(n1[k] == n0[k] for k in n0
-               if k not in ("axis_dft", "block_combine"))
-    assert n1["block_combine"] > n0["block_combine"]
+    # K2, K4 (the dense algebra) and K5 (the operator's block multiplies)
+    # serve the complex path; K1, K3 not
+    serve = ("axis_dft", "block_combine", "op_pre", "op_post")
+    assert all(n1[k] == n0[k] for k in n0 if k not in serve)
+    assert all(n1[k] > n0[k] for k in serve[1:])
     for i, (a, r) in enumerate(zip(alphas, res)):
         s = kps.solve(a, seed=4 + i)
         assert r.status in (1, 5) and s.status in (1, 5)
@@ -773,3 +776,157 @@ def test_k4_route_raises_where_k4_cannot_read_and_counts_past_its_limits():
     assert tracing.counts().get("dense.matmul") == 1
     assert tracing.counts().get("dense.k4", 0) == 0
     assert block_combine.launches == 0
+
+
+def _k5_operands(dev, seed, n, c, lanes=None, offset=False):
+    """x, z, d_a, b and a shift (a number, or the lanes' real tensor) in
+    the operator's layouts at grid n; ``offset`` puts every block and
+    symbol one complex element past an aligned start (8-byte loads)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lead = (c,) if lanes is None else (lanes, c)
+    slead = () if lanes is None else (lanes, 1)
+    comp = (3, n, n, n)
+
+    def make(shape, dtype=torch.complex64):
+        k = int(np.prod(shape)) + int(offset)
+        full = (torch.randn if dtype.is_complex else torch.rand)(
+            (k,), generator=gen, device=dev, dtype=dtype)
+        return full[int(offset):].view(shape)
+
+    b = sym.HermSymbol(make(slead + comp, torch.float32), make(slead + comp))
+    shift = (3.17 if lanes is None else
+             torch.rand((lanes,) + (1,) * 5, generator=gen, device=dev))
+    return (make(lead + comp), make(lead + comp), make(slead + comp), b,
+            shift)
+
+
+def _k5_check(x, z, d_a, b, shift):
+    """Each entry point against its plain version on the card, bit for
+    bit: pre, post without the penalty, post with it."""
+    from pcx_torch.kernels.op_blocks import (op_post, op_post_plain, op_pre,
+                                             op_pre_plain)
+    n0 = (op_pre.launches, op_post.launches)
+    for got, want in ((op_pre(x, d_a), op_pre_plain(x, d_a)),
+                      (op_post(z, d_a), op_post_plain(z, d_a)),
+                      (op_post(z, d_a, x, b, shift),
+                       op_post_plain(z, d_a, x, b, shift))):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert (op_pre.launches, op_post.launches) == (n0[0] + 1, n0[1] + 2)
+
+
+def test_k5_matches_the_eager_composition_bit_for_bit():
+    """K5 at the main path's shapes, N=120 and m=16: each entry point
+    equals the eager composition it replaces under ``torch.equal``, with
+    the serial apply's number shift and with the shift 0 (left out)."""
+    dev = _cuda()
+    x, z, d_a, b, shift = _k5_operands(dev, 20, 120, 16)
+    _k5_check(x, z, d_a, b, shift)
+    _k5_check(x, z, d_a, b, 0.0)
+
+
+@pytest.mark.parametrize("c", [1, 4, 5, 12])
+@pytest.mark.parametrize("n", [100, 150])
+def test_k5_tails_and_lanes(n, c):
+    """Grids whose N^3 leaves a ragged last tile, any column count, one
+    lane and four lanes with their own symbols and shifts (the lanes of a
+    k-point batch): bit for bit against the plain version."""
+    dev = _cuda()
+    _k5_check(*_k5_operands(dev, n + c, n, c))
+    _k5_check(*_k5_operands(dev, n - c, n, c, lanes=4))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("n,offset", [(75, False), (16, True)],
+                         ids=["odd-N", "unaligned"])
+def test_k5_eight_byte_path(n, offset):
+    """An odd N^3, and operands one element past an aligned start, take
+    the 8-byte loads: the same bits."""
+    dev = _cuda()
+    _k5_check(*_k5_operands(dev, n, n, 5, offset=offset))
+    _k5_check(*_k5_operands(dev, n, n, 3, lanes=2, offset=offset))
+
+
+def test_k5_error_vs_complex128():
+    """K5's error against the same block multiplies in complex128 at N=120,
+    m=16 (relative Frobenius norm) is the eager composition's: the same
+    bits, below 1e-6."""
+    from pcx_torch.kernels.op_blocks import (op_post, op_post_plain, op_pre,
+                                             op_pre_plain)
+    dev = _cuda()
+    x, z, d_a, b, shift = _k5_operands(dev, 21, 120, 16)
+    w = torch.complex128
+    b128 = sym.HermSymbol(b.diag.double(), b.sdiag.to(w))
+    for k5, eager, exact in (
+            (lambda: op_pre(x, d_a), lambda: op_pre_plain(x, d_a),
+             lambda: op_pre_plain(x.to(w), d_a.to(w))),
+            (lambda: op_post(z, d_a, x, b, shift),
+             lambda: op_post_plain(z, d_a, x, b, shift),
+             lambda: op_post_plain(z.to(w), d_a.to(w), x.to(w), b128,
+                                   shift))):
+        ref = exact()
+        norm = float(torch.linalg.vector_norm(ref))
+        err_k = float(torch.linalg.vector_norm(k5().to(w) - ref)) / norm
+        err_e = float(torch.linalg.vector_norm(eager().to(w) - ref)) / norm
+        del ref
+        assert err_k == err_e and err_k < 1e-6, (err_k, err_e)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("how", ["rs", "complex", "lanes"])
+def test_k5_takes_every_apply_of_a_complex64_solve(how):
+    """A complex64 solve with the light refine on the card (the rs solver,
+    the complex family, and three lanes of a k-point batch): every operator
+    apply launches K5's two passes (each pass's launches equal
+    ``op.applies``) and ``k5.bytes`` counts them."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    from pcx_torch.kernels.op_blocks import op_post, op_pre
+    from pcx_torch.lattices import k_path
+    dev = _cuda()
+    kps = KPointSolver(ProblemConfig(n=24, lattice="fcc", nev=6),
+                       device=dev, dtype=torch.complex64, refine="light",
+                       solver_impl="complex" if how == "complex" else "rs")
+    kmod.reset_launches()
+    if how == "lanes":
+        res = kps.solve_batch([k_path("fcc")[i] for i in (9, 10, 11)])
+    else:
+        res = [kps.solve(np.array([np.pi, 0.0, 0.0]))]
+    counts = tracing.counts()
+    assert all(r.status in (1, 5) for r in res)
+    assert op_pre.launches == op_post.launches == counts["op.applies"] > 0
+    assert counts["k5.bytes"] > 0
+
+
+def test_k5_route_raises_where_k5_cannot_read():
+    """On the card a complex64 apply always goes to K5, which raises on a
+    block it cannot read (not contiguous) or a lazily conjugated symbol; a
+    complex128 apply takes the eager composition and launches nothing."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch.kernels.op_blocks import op_post, op_pre, op_pre_plain
+    from pcx_torch.operators import maxwell
+    dev = _cuda()
+    x, _, d_a, b, shift = _k5_operands(dev, 22, 16, 4)
+    xt = x.transpose(-1, -2)
+
+    def diel(v):
+        return 0.5 * v
+
+    kmod.reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        maxwell.ama_bb(xt, d_a, b, diel, shift)
+    with pytest.raises(ValueError, match="conjugated"):
+        maxwell.ama(x, d_a.conj(), diel)
+    w = torch.complex128
+    b128 = sym.HermSymbol(b.diag.double(), b.sdiag.to(w))
+    got = maxwell.ama_bb(x.to(w), d_a.to(w), b128, diel, shift)
+    want = maxwell.ama_bb(x, d_a, b, diel, shift)
+    assert op_pre.launches == op_post.launches == 1
+    torch.testing.assert_close(want.to(w), got, rtol=1e-5,
+                               atol=1e-5 * float(got.abs().max()))
+    with pytest.raises(ValueError, match="contiguous"):
+        op_pre(xt, d_a)
+    torch.testing.assert_close(op_pre(x, d_a), op_pre_plain(x, d_a),
+                               rtol=0.0, atol=0.0)
