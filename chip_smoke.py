@@ -11,8 +11,8 @@ failure ends the run with a non-zero exit:
 2. build   — compile the CUDA kernels (nvcc, sm_90a, one process per
              source, all at once) from the sources.
 3. k1      — K1 resid_precond vs its plain version at m=16, N=120; then
-             its lane form (the lockstep k-point batch) at 4 lanes of
-             m=16, each lane with its own symbol, vs its plain lane form,
+             on a lane axis (the lockstep k-point batch) at 4 lanes of
+             m=16, each lane with its own symbol, vs its plain version,
              lane 0 bit for bit against the one-lane launch, timed beside
              its bound and four one-lane launches.
 4. k2      — K2 axis_dft (the mixed-radix FFT) at B=48, N=100, 120, 150,
@@ -34,8 +34,8 @@ failure ends the run with a non-zero exit:
 5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
              (and both against complex128); timed beside the stacked
              ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
-             torch.cat that builds its input; then its lane form at 4 lanes,
-             as phase 3's, beside the stacked ``rr.gram_f64`` of the lanes;
+             torch.cat that builds its input; then on a lane axis at 4
+             lanes, as phase 3's, beside the stacked ``rr.gram_f64`` of the lanes;
              then K4 block_combine at the main path's three calls (m=16,
              N=120: the second SVQB's projection and scaling, the
              Rayleigh-Ritz update of the stacked block), each
@@ -225,15 +225,15 @@ failure ends the run with a non-zero exit:
              k_batch=)``): (a) cold fcc N=120 groups of 1, 2 and 4 lanes
              from k_path index 9, cut at 24 iterations (timed only, not
              gated, after a 2-iteration warm-up group), with ms per
-             lane-iteration, peak memory and launches (K1's lane form and
-             K2 must launch at 2 and 4 lanes), then the device's busy share
+             lane-iteration, peak memory and launches (K1 and K2 must
+             launch at 1, 2 and 4 lanes), then the device's busy share
              under torch.profiler over 12-iteration groups of 1 and 4
              lanes; (b) ``bandgap(k_batch=4)`` over fcc rows 9-16 with
              rr_gram="pallas" (two groups of four lanes, the second warm
              from the first's last block): every row CONVERGED or FLOOR,
              max|omega - omega_re| <= 1e-3 and within 3.5e-3 of
-             output_c64/chiral/bandgap_fcc.json; K1's and K3's lane forms
-             and K2 must launch.
+             output_c64/chiral/bandgap_fcc.json; K1, K3 and K2 must
+             launch.
 23. complex-lanes — the lockstep batch of the complex LOBPCG family
              (``solver_impl="complex"``, ``lobpcg_sep_lanes``): (a) as
              phase 22 (a), cold fcc N=120 groups of 1, 2 and 4 lanes from
@@ -265,11 +265,13 @@ launch), on rank 0 around phase 18's ``bandgap(mesh=)`` (K1, K2 and K3
 must launch) and around phase 19 (K1, K2 and K3 must launch, in its sweeps
 (d) too), around each of phase 20's (a), (b) and (c) (K1 and K2 must
 launch), and around each solve of phase 21 (b) and its (c) (K1 and K2 must
-launch), and around each group of phase 22 (a) and its (b) (K1's and K3's
-lane forms and K2), and around each group of phase 23 (a) and its (b) (K2
+launch), and around each group of phase 22 (a) and its (b) (K1, K3 and
+K2), and around each group of phase 23 (a) and its (b) (K2
 alone).
 The ``{"kernels": [...]}`` line gives, per
-kernel, the sweep's launches (and ``launches_solvers``: phase 13's;
+kernel, the sweep's launches (K1's and K3's counted as lane-launches, one
+per lane served, as ``kernels.launches()`` counts them; the others'
+launches) (and ``launches_solvers``: phase 13's;
 ``launches_near_gamma``: phase 14's; ``launches_coarse_start``: the
 two-grid start's of phase 16; ``launches_experiments``: phase 17's;
 ``launches_parallel``: rank 0's in phase 18's ``bandgap(mesh=)``;
@@ -277,9 +279,10 @@ two-grid start's of phase 16; ``launches_experiments``: phase 17's;
 default protocol; ``launches_wcap``: phase 21 (c)'s, K2's also by batch
 in ``launches_wcap_by_batch``; ``launches_lanes``: phase 22 (b)'s; ``launches_complex_lanes``:
 phase 23 (b)'s; K2's
-``by_batch``: phase 4 at B=12, 24, 96, 144, 192), then the lane forms of K1 and K3
-(``resid_precond_lanes``, ``gram9_lanes``, whose ``launches`` are phase
-22 (b)'s), the kernel's time beside its plain
+``by_batch``: phase 4 at B=12, 24, 96, 144, 192), then K1 and K3 on a
+lane axis (``resid_precond`` and ``gram9`` with ``lanes``, whose
+``launches`` are phase 22 (b)'s, one per lane served), the kernel's time
+beside its plain
 version's, its bound on this card at the peak of the units it runs on
 (``arith``, ``bound_peak``) and the time of the PyTorch library call that
 computes the same function (null where there is none).
@@ -316,13 +319,13 @@ HBM_BYTES_S = 3.35e12    # H100 SXM device-memory rate (NVIDIA data sheet)
 # 3xTF32 split of K3 runs three TF32 products per f32 product.
 TF32X3_FLOPS = 495e12 / 3
 FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
-# The wrappers of the one-point solve; their lane forms run in phase 22.
+# The wrappers of the one-point solve; phase 22 runs them on lanes.
 SERIAL_KERNELS = ("resid_precond", "axis_dft", "gram9")
 # The kernels of the default route (rr_gram="xla"), phases 7-8.
 PATH_KERNELS = ("resid_precond", "axis_dft", "block_combine", "op_pre",
                 "op_post")
 # Phase 22: the lockstep k-point batch.
-LANES_K = 4                  # lanes of the K1 / K3 lane forms (phases 3, 5)
+LANES_K = 4                  # lanes of K1 / K3 on a lane axis (phases 3, 5)
 LANE_COUNTS = (1, 2, 4)      # (a): lanes of the timed groups
 LANE_FIRST = 9               # (a): fcc k_path index of the first lane
 LANE_CUT = 24                # (a): iterations of each timed group
@@ -518,12 +521,11 @@ def phase_k1(gen, dev, peak: float) -> dict:
 
 def phase_k1_lanes(gen, dev, peak: float, one_ms: float,
                    lanes: int = LANES_K) -> dict:
-    """K1's lane form at ``lanes`` lanes of m=16, N=120, each lane with its
-    own symbol, against its plain lane form (phase 3's tolerances); lane 0
-    against the one-lane kernel bit for bit; its time beside the bound and
-    ``lanes`` times phase 3's one-lane launch."""
+    """K1 on a lane axis at ``lanes`` lanes of m=16, N=120, each lane with
+    its own symbol, against its plain version (phase 3's tolerances); lane
+    0 against the launch without a lane axis bit for bit; its time beside
+    the bound and ``lanes`` times phase 3's one-lane launch."""
     from pcx_torch.kernels.resid_precond import (resid_precond,
-                                                 resid_precond_lanes,
                                                  resid_precond_plain)
     m, d = 16, N ** 3
     c = lambda *sh: torch.randn(sh, generator=gen, device=dev,
@@ -532,7 +534,7 @@ def phase_k1_lanes(gen, dev, peak: float, one_ms: float,
             torch.rand((lanes, m), generator=gen, device=dev) * 100.0,
             torch.rand((lanes, 3, d), generator=gen, device=dev),
             0.1 * c(lanes, 3, d))
-    w_k, ss_k = resid_precond_lanes(*args)
+    w_k, ss_k = resid_precond(*args)
     w_p, ss_p = resid_precond_plain(*args)
     w_1, ss_1 = resid_precond(*(a[0] for a in args))
     torch.cuda.synchronize()
@@ -542,7 +544,7 @@ def phase_k1_lanes(gen, dev, peak: float, one_ms: float,
           and torch.allclose(ss_k, ss_p, rtol=1e-5, atol=0.0))
     same = bool(torch.equal(w_k[0], w_1) and torch.equal(ss_k[0], ss_1))
     del w_p, ss_p, w_1, ss_1
-    ms = cuda_ms(lambda: resid_precond_lanes(*args))
+    ms = cuda_ms(lambda: resid_precond(*args))
     plain_ms = cuda_ms(lambda: resid_precond_plain(*args))
     b = bound(78.0 * lanes * m * d, sum(t.numel() * t.element_size()
                                         for t in args + (w_k, ss_k)), peak)
@@ -554,11 +556,11 @@ def phase_k1_lanes(gen, dev, peak: float, one_ms: float,
           f"{100 * b['bound_ms'] / ms:.1f}% reached; no library call",
           flush=True)
     if not (ok and same):
-        fail("K1's lane form disagrees with its plain lane form (phase 3's "
-             "tolerances) or, on lane 0, with the one-lane launch")
+        fail("K1 on a lane axis disagrees with its plain version (phase "
+             "3's tolerances) or, on lane 0, with the one-lane launch")
     del args, w_k, ss_k
     torch.cuda.empty_cache()   # the subprocess phases need the card's memory
-    return {"name": "resid_precond_lanes", "route": "cuda", "arith": FP32_FMA,
+    return {"name": "resid_precond", "route": "cuda", "arith": FP32_FMA,
             "source": "pcx_torch/kernels/csrc/resid_precond.cu",
             "replaces": "pcx/operators/pallas_kernels.py:130",
             "lanes": lanes, "max_abs_err": err_w, "ms": ms,
@@ -783,22 +785,23 @@ def phase_k3(gen, dev, peak: float) -> dict:
 
 def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
                    lanes: int = LANES_K) -> dict:
-    """K3's lane form: six (lanes, 16, 3*120^3) blocks against the plain
-    lane form (phase 5's tolerance), lane 0 against the one-lane kernel
-    bit for bit, timed beside the bound, ``lanes`` one-lane launches and
-    the batched stacked ``rr.gram_f64`` (the rr_gram="xla" route)."""
-    from pcx_torch.kernels.gram9 import gram9, gram9_lanes, gram9_plain
+    """K3 on a lane axis: six (lanes, 16, 3*120^3) blocks against the
+    plain version (phase 5's tolerance), lane 0 against the launch without
+    a lane axis bit for bit, timed beside the bound, ``lanes`` one-lane
+    launches and the batched stacked ``rr.gram_f64`` (the rr_gram="xla"
+    route)."""
+    from pcx_torch.kernels.gram9 import gram9, gram9_plain
     from pcx_torch.solvers import rayleigh_ritz as rr
     m, d = 16, 3 * N ** 3
     blocks = [torch.randn((lanes, m, d), generator=gen, device=dev,
                           dtype=torch.complex64) for _ in range(6)]
-    t_k = gram9_lanes(*blocks)
+    t_k = gram9(*blocks)
     t_p = gram9_plain(*blocks)
     same = bool(torch.equal(t_k[0], gram9(*(b[0] for b in blocks))))
     torch.cuda.synchronize()
     err, scale = max_err(t_k, t_p), float(t_p.abs().max())
     del t_p
-    ms = cuda_ms(lambda: gram9_lanes(*blocks))
+    ms = cuda_ms(lambda: gram9(*blocks))
     plain_ms = cuda_ms(lambda: gram9_plain(*blocks))
     s, hs = torch.cat(blocks[:3], dim=1), torch.cat(blocks[3:], dim=1)
     lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
@@ -814,11 +817,11 @@ def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
           f"gram_f64 on the stacked lanes {lib_ms:.3f} ms; {text}",
           flush=True)
     if not (err <= 1e-5 * scale and same):
-        fail("K3's lane form disagrees with its plain lane form (atol "
+        fail("K3 on a lane axis disagrees with its plain version (atol "
              "1e-5*max|T|) or, on lane 0, with the one-lane launch")
     del blocks, t_k
     torch.cuda.empty_cache()   # the subprocess phases need the card's memory
-    return {"name": "gram9_lanes", "route": "cuda",
+    return {"name": "gram9", "route": "cuda",
             "source": "pcx_torch/kernels/csrc/gram9.cu",
             "replaces": "pcx/operators/pallas_kernels.py:27",
             "lanes": lanes, "max_abs_err": err, "ms": ms,
@@ -2787,8 +2790,8 @@ def phase_lanes(dev, n: int = N, golden: bool = True,
     ``rows`` with rr_gram="pallas" (two lockstep groups, the second warm
     from the first's last block), each row CONVERGED or FLOOR, its
     max|omega - omega_re| <= 1e-3 and within 3.5e-3 of its committed row.
-    K1's and K3's lane forms and K2 must launch in (b) (counts reset just
-    before it); returns the launches of (b)."""
+    K1, K3 and K2 must launch in (b) (counts reset just before it);
+    returns the launches of (b)."""
     from pcx_torch import kernels as kmod
     from pcx_torch.bandstructure import bandgap
     from pcx_torch.metrics import load_jsonl
@@ -2816,9 +2819,8 @@ def phase_lanes(dev, n: int = N, golden: bool = True,
               f"({per_lane[lanes] / per_lane[counts[0]]:.3f} of L="
               f"{counts[0]}); peak device memory {_peak_gib(dev):.2f} GiB; "
               f"launches {got}", flush=True)
-        k1 = "resid_precond_lanes" if lanes > 1 else "resid_precond"
-        if cuda and not (got[k1] and got["axis_dft"]):
-            fail(f"lanes (a) L={lanes}: {k1} or K2 never launched: {got}")
+        if cuda and not (got["resid_precond"] and got["axis_dft"]):
+            fail(f"lanes (a) L={lanes}: K1 or K2 never launched: {got}")
         del res
     busy = {}
     if cuda:
@@ -2865,7 +2867,7 @@ def phase_lanes(dev, n: int = N, golden: bool = True,
                 fail(f"lanes (b) k={i}: spurious ({spur:.3e})")
             if golden and not gold <= GOLDEN_TOL:
                 fail(f"lanes (b) k={i}: {gold:.3e} from the golden row")
-    if cuda and not (got["resid_precond_lanes"] and got["gram9_lanes"]
+    if cuda and not (got["resid_precond"] and got["gram9"]
                      and got["axis_dft"]):
         fail(f"lanes (b): a kernel of the lane path never launched: {got}")
     print(f"  phase lanes: {time.time() - t_phase:.3f} s", flush=True)
@@ -2881,7 +2883,7 @@ def phase_complex_lanes(dev, n: int = N, golden: bool = True,
     (``solver_impl="complex"``).  (a) ms per lane-iteration of cold fcc
     groups of 1, 2 and 4 lanes cut at ``cut`` iterations (timed only, not
     gated), each with its peak device memory and launches: K2 must launch
-    at B = 3 L m, K1 and K3 (either form) never; then the device's busy
+    at B = 3 L m, K1 and K3 never; then the device's busy
     share over groups of 1 and 4 lanes cut at ``profiled`` iterations.
     (b) ``bandgap(k_batch=4)`` resuming ``rows`` of a copy of the
     committed fcc library (one lockstep group of four lanes; a group warm
@@ -2896,8 +2898,7 @@ def phase_complex_lanes(dev, n: int = N, golden: bool = True,
     t_phase = time.time()
     cuda = dev.type == "cuda"
     impl = {"solver_impl": "complex"}
-    off_path = ("resid_precond", "gram9", "resid_precond_lanes",
-                "gram9_lanes")
+    off_path = ("resid_precond", "gram9")
     print(f"phase complex-lanes: solver_impl='complex'; (a) cold fcc N={n} "
           f"groups of {list(counts)} lanes from k_path index {LANE_FIRST}, "
           f"{cut} iterations; (b) bandgap k_batch={k_batch} resuming rows "

@@ -56,8 +56,7 @@ from pcx_torch import interop, lattices, tracing, validate
 from pcx_torch.config import (GAP, MAXITER, NEV, TOL, TYPE_CHIRAL,
                               ProblemConfig, block_width, set_relaxation)
 from pcx_torch.io import BandLibrary
-from pcx_torch.kernels.resid_precond import (resid_precond,
-                                             resid_precond_lanes)
+from pcx_torch.kernels.resid_precond import resid_precond
 from pcx_torch.operators import maxwell
 from pcx_torch.operators import symbols as sym
 from pcx_torch.operators.blocks import h_block, h_block_planes
@@ -67,8 +66,7 @@ from pcx_torch.parallel.mesh import GRID_AXIS, K_AXIS, axis_size
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.davidson import davidson_sep, jd_sep
 from pcx_torch.solvers.lobpcg import (Status, lobpcg_sep_lanes,
-                                      lobpcg_sep_mixedprecision_lanes,
-                                      one_lane)
+                                      lobpcg_sep_mixedprecision_lanes)
 from pcx_torch.solvers.lobpcg_rs import lobpcg_sep_rs, lobpcg_sep_rs_lanes
 from pcx_torch.metrics import RunLogger
 from pcx_torch.utils import (GREEN, RED, RESET, YELLOW, dots, generator,
@@ -441,99 +439,75 @@ class KPointSolver:
                                      m - x.shape[0], self.dtype, self.device)
         return torch.cat((x, extra))
 
-    def _rp_fused(self, inv: sym.HermSymbol, m: int):
-        """The rp_fused hook of the solver, running kernel K1 on the flat
-        (m, 3N^3) blocks."""
-        n3 = self.cfg.n ** 3
-        inv_diag = inv.diag.reshape(3, n3)
-        inv_sd = inv.sdiag.reshape(3, n3)
-
-        def rp(xf, hxf, lam):
-            w, sumsq = resid_precond(xf.view(m, 3, n3), hxf.view(m, 3, n3),
-                                     lam, inv_diag, inv_sd)
-            return w.view(m, -1), sumsq
-
-        return rp
-
     def _lane_parts(self, alphas) -> tuple:
-        """The k-dependent parts of a lane solve of ``alphas``, stacked on a
+        """The k-dependent parts of a solve of the group ``alphas`` on a
         lane axis: (symbols, refresh periods; None where the solver's
-        option or default holds, as in ``solve``).  ``symbols(lanes)`` gives,
-        for a tuple of lane indices, the curl and penalty symbols (R, 1, 3,
-        N, N, N), the inverse-penalty symbol (R, 3, N, N, N) and the shifts
-        (R, 1, 1, 1, 1, 1) of those lanes, as a ``Symbols`` (its ``pnt``
-        unused; the shift 0.0 when every lane's is 0, as the serial apply
-        skips it); the subset of the lanes still running is selected once
-        and kept until the running set changes."""
+        option or default holds).  ``symbols(lanes)`` gives, for a tuple of
+        lane indices, the curl, penalty and inverse-penalty symbols (R, 1,
+        3, N, N, N) and the shifts of those lanes, as a ``Symbols`` (its
+        ``pnt`` unused).  A group of one keeps its symbols as views and its
+        shift as the number; a larger group stacks them, the shifts as an
+        (R, 1, 1, 1, 1, 1) tensor (0.0 when every lane's is 0, as the apply
+        then skips it).  The subset of the lanes still running is selected
+        once and kept until the running set changes."""
         per = [self.symbols_for(a) for a in alphas]
         shifts = [s.shift for s in per]
         refresh = ([refresh_period(s.pnt) for s in per]
                    if self._scale_refresh else None)
-        full = (torch.stack([s.d_a for s in per])[:, None],
-                torch.stack([s.b.diag for s in per])[:, None],
-                torch.stack([s.b.sdiag for s in per])[:, None],
-                torch.stack([s.inv.diag for s in per]),
-                torch.stack([s.inv.sdiag for s in per]))
+        full = tuple(_lane_axis(parts)[:, None] for parts in
+                     zip(*((s.d_a, *s.b, *s.inv) for s in per)))
         del per
-        cache = {}
 
-        def symbols(lanes: tuple) -> Symbols:
-            if lanes not in cache:
-                cache.clear()
-                parts = full
-                if len(lanes) < len(shifts):
-                    idx = torch.as_tensor(lanes, device=self.device)
-                    parts = tuple(a.index_select(0, idx) for a in full)
-                sh = [shifts[j] for j in lanes]
-                shift = (torch.tensor(sh, dtype=self.rdt, device=self.device
-                                      ).view(-1, 1, 1, 1, 1, 1)
-                         if any(sh) else 0.0)
-                cache[lanes] = Symbols(parts[0],
-                                       sym.HermSymbol(parts[1], parts[2]),
-                                       sym.HermSymbol(parts[3], parts[4]),
-                                       shift, 0.0)
-            return cache[lanes]
+        def build(lanes: tuple) -> Symbols:
+            parts = full
+            if len(lanes) < len(shifts):
+                idx = torch.as_tensor(lanes, device=self.device)
+                parts = tuple(a.index_select(0, idx) for a in full)
+            sh = [shifts[j] for j in lanes]
+            if len(shifts) == 1:
+                shift = sh[0]
+            elif any(sh):
+                shift = torch.tensor(sh, dtype=self.rdt, device=self.device
+                                     ).view(-1, 1, 1, 1, 1, 1)
+            else:
+                shift = 0.0
+            return Symbols(parts[0], sym.HermSymbol(parts[1], parts[2]),
+                           sym.HermSymbol(parts[3], parts[4]), shift, 0.0)
 
-        return symbols, refresh
-
-    def _rp_fused_lanes(self, symbols, m: int):
-        """The rp_fused hook of the lane solver, running K1's lane form on
-        the flat (R, m, 3N^3) blocks of the running lanes."""
-        n3 = self.cfg.n ** 3
-
-        def rp(xf, hxf, lam, lanes):
-            inv = symbols(lanes).inv
-            r = len(lanes)
-            w, sumsq = resid_precond_lanes(
-                xf.view(r, m, 3, n3), hxf.view(r, m, 3, n3), lam,
-                inv.diag.view(r, 3, n3), inv.sdiag.view(r, 3, n3))
-            return w.view(r, m, -1), sumsq
-
-        return rp
+        return _per_running(build), refresh
 
     @tracing.spanned("pcx.solve")
-    def _solve_lanes(self, alphas, x0s, seeds, validate_result: bool,
-                     raise_on_spurious: bool) -> list:
-        """One lane-batched LOBPCG of ``alphas``, the body of this solver's
-        ``solve``: ``lobpcg_sep_rs_lanes`` (``solver_impl="rs"``) or the
-        complex family's ``lobpcg_sep_lanes``.  Member i starts from
-        ``x0s[i]`` (fitted to the width) or cold with ``seeds[i]``, with
-        the warm cap and doom check its ``solve`` would apply (none under
-        the complex impl), and is validated as ``solve`` validates.  Every
-        member's ``wall_time`` is the group's over its size."""
+    def _solve_group(self, alphas, x0s, seeds, validate_result: bool,
+                     verbose: bool, raise_on_spurious: bool) -> list:
+        """Solve the k-points ``alphas`` as the lanes of one solve: the body
+        of ``solve`` (a group of one) and of ``solve_batch``.  Member i
+        starts from ``x0s[i]`` (fitted to the width) or cold with
+        ``seeds[i]``.  ``solver_impl="rs"`` runs ``lobpcg_sep_rs_lanes``
+        (``lobpcg_sep_rs``, its one-lane entry, for a group of one) with
+        each member's warm cap and doom check; ``solver_impl="complex"``
+        runs ``lobpcg_sep_lanes`` (``lobpcg_sep_mixedprecision_lanes`` for
+        ``mixed``, its preconditioner cast to complex64) with no warm cap and
+        no doom check, as the JAX complex route (pcx/bandstructure.py:
+        441-456).  Davidson and JD take a group of one, through one-lane
+        views of the hooks.  Every member is validated by ``refine``, and its
+        ``wall_time`` is the group's over its size."""
         m = self.block_width(alphas[0])
         warm = x0s is not None
         t_x0 = time.time()
         if warm:
-            x0 = torch.stack([self._fit(x, m, sd) if x.shape[0] != m else x
-                              for x, sd in zip(
-                                  (x.to(device=self.device, dtype=self.dtype)
-                                   for x in x0s), seeds)])
+            blocks = [self._fit(x, m, sd) if x.shape[0] != m else x
+                      for x, sd in zip(
+                          (x.to(device=self.device, dtype=self.dtype)
+                           for x in x0s), seeds)]
         else:
-            x0 = torch.stack([self._x0_cold(a, m, sd)
-                              for a, sd in zip(alphas, seeds)])
+            blocks = [self._x0_cold(a, m, sd)
+                      for a, sd in zip(alphas, seeds)]
+        x0 = _lane_axis(blocks)
+        del blocks
         x0_wall = 0.0
         if not warm and self.x0_mode == "coarse":
+            # the two-grid start's coarse solve counts in the wall time
+            # (time to validated frequencies from scratch)
             self._sync()
             x0_wall = time.time() - t_x0
         self.last_x0_wall = x0_wall
@@ -548,54 +522,82 @@ class KPointSolver:
                                   self.dft)
 
         if self.solver == "mixed" and self.impl == "rs":
+            bf16 = _per_running(lambda lanes: _p_func_bf16(
+                symbols(lanes).inv))
+
             def p_func(v, lanes):
-                inv = symbols(lanes).inv
-                return _p_func_bf16(sym.HermSymbol(inv.diag[:, None],
-                                                   inv.sdiag[:, None]))(v)
+                return bf16(lanes)(v)
         else:
             def p_func(v, lanes):
-                inv = symbols(lanes).inv
-                return h_block(v, sym.HermSymbol(inv.diag[:, None],
-                                                 inv.sdiag[:, None]))
+                return h_block(v, symbols(lanes).inv)
 
         opts = dict(self.solver_opts)
         if refresh is not None:
             opts["refresh_every"] = refresh
         self.last_doom = None
+        widths = [None for _ in alphas]
+
+        def one(f):
+            """A lane hook as the hook of a group of one (views)."""
+            return lambda *a: _lane0(f(*(b[None] for b in a), (0,)))
+
         with tracing.span("pcx.lobpcg"):
-            if self.impl == "complex":
-                widths = [None for _ in alphas]
-                res = self._complex_lanes(h_func, p_func, x0, opts)
+            if self.solver in DAVIDSONS:
+                fn = davidson_sep if self.solver == "davidson" else jd_sep
+                kw = {k: v for k, v in opts.items() if k == "subspace"}
+                res = [fn(one(h_func), one(p_func), x0[0], self.cfg.nev,
+                          tol=self.tol, maxiter=self.maxiter, **kw)]
+            elif self.impl == "complex":
+                fn = (lobpcg_sep_mixedprecision_lanes
+                      if self.solver == "mixed" else lobpcg_sep_lanes)
+                res = fn(h_func, p_func, x0, self.cfg.nev, tol=self.tol,
+                         maxiter=self.maxiter, locking=self.locking, **opts)
             else:
-                rp = (self._rp_fused_lanes(symbols, m)
+                # K1 computes the preconditioner in float32: off for "mixed"
+                rp = (self._k1_hook(symbols, m)
                       if self.dtype == torch.complex64
                       and self.solver != "mixed" else None)
                 limit = (min(self.maxiter, self.warm_maxiter)
                          if warm and self.warm_maxiter > 0 else None)
                 widths = [[] for _ in alphas]
-                res = lobpcg_sep_rs_lanes(
-                    h_func, p_func, x0, self.cfg.nev, tol=self.tol,
-                    maxiter=self.maxiter, locking=self.locking, rp_fused=rp,
-                    limit=limit, monitor=[self._monitor(warm) for _ in alphas],
-                    widths=widths, **opts)
+                monitors = [self._monitor(warm) for _ in alphas]
+                kw = dict(tol=self.tol, maxiter=self.maxiter,
+                          locking=self.locking, limit=limit)
+                if len(alphas) == 1:
+                    # the library's one-lane entry, which is the lane body
+                    # at one lane: the same launches on views
+                    if refresh is not None:
+                        opts["refresh_every"] = refresh[0]
+                    res = [lobpcg_sep_rs(
+                        one(h_func), one(p_func), x0[0], self.cfg.nev,
+                        rp_fused=None if rp is None else one(rp),
+                        monitor=monitors[0], widths=widths[0], **kw, **opts)]
+                else:
+                    res = lobpcg_sep_rs_lanes(
+                        h_func, p_func, x0, self.cfg.nev, rp_fused=rp,
+                        monitor=monitors, widths=widths, **kw, **opts)
         del x0
         self._sync()
         wall = (time.time() - t0 + x0_wall) / len(alphas)
         _heartbeat()
-        return [self._result(a, r, wall, w, validate_result, False,
+        return [self._result(a, r, wall, w, validate_result, verbose,
                              raise_on_spurious)
                 for a, r, w in zip(alphas, res, widths)]
 
-    def _complex_lanes(self, h_func, p_func, x0, opts) -> list:
-        """The complex route's solver on the lanes of ``x0`` (``solve`` runs
-        one lane): ``lobpcg_sep_lanes`` with the solver's locking, its
-        preconditioner cast to complex64 for ``mixed``; ``descent`` has
-        ``use_p=False`` in ``opts``.  No warm cap and no doom check, as the
-        JAX complex route (pcx/bandstructure.py:441-456)."""
-        fn = (lobpcg_sep_mixedprecision_lanes if self.solver == "mixed"
-              else lobpcg_sep_lanes)
-        return fn(h_func, p_func, x0, self.cfg.nev, tol=self.tol,
-                  maxiter=self.maxiter, locking=self.locking, **opts)
+    def _k1_hook(self, symbols, m: int):
+        """The rp_fused hook of the solver: kernel K1 on the flat (R, m,
+        3N^3) blocks of the running lanes."""
+        n3 = self.cfg.n ** 3
+
+        def rp(xf, hxf, lam, lanes):
+            inv = symbols(lanes).inv
+            r = len(lanes)
+            w, sumsq = resid_precond(
+                xf.view(r, m, 3, n3), hxf.view(r, m, 3, n3), lam,
+                inv.diag.view(r, 3, n3), inv.sdiag.view(r, 3, n3))
+            return w.view(r, m, -1), sumsq
+
+        return rp
 
     def _doom(self):
         """Host-side doom check of a warm solve, called at the marks 24, 64,
@@ -641,7 +643,6 @@ class KPointSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @tracing.spanned("pcx.solve")
     def solve(self, alpha, x0: Optional[torch.Tensor] = None, seed: int = 0,
               validate_result: bool = True, verbose: bool = False,
               raise_on_spurious: bool = True) -> EigenResult:
@@ -649,72 +650,10 @@ class KPointSolver:
         ``x0_mode``, and validate it by ``refine``.  ``raise_on_spurious``
         (default True, as in JAX) raises ``SpuriousModeError`` from the
         validation; False leaves the verdict in ``report.spurious``."""
-        cfg = self.cfg
-        alpha = np.asarray(alpha, dtype=float)
-        m = self.block_width(alpha)
-        warm = x0 is not None
-        x0_wall = 0.0
-        if x0 is None:
-            t_x0 = time.time()
-            x0 = self._x0_cold(alpha, m, seed)
-            if self.x0_mode == "coarse":
-                # the two-grid start's coarse solve counts in the wall time
-                # (time to validated frequencies from scratch)
-                self._sync()
-                x0_wall = time.time() - t_x0
-        else:
-            x0 = x0.to(device=self.device, dtype=self.dtype)
-            if x0.shape[0] != m:
-                x0 = self._fit(x0, m, seed)
-        self.last_x0_wall = x0_wall
-
-        self._sync()
-        t0 = time.time()
-        sy = self.symbols_for(alpha)
-
-        def h_func(v):
-            return maxwell.ama_bb(v, sy.d_a, sy.b, self.diel, sy.shift,
-                                  self.dft)
-
-        if self.solver == "mixed" and self.impl == "rs":
-            p_func = _p_func_bf16(sy.inv)
-        else:
-            def p_func(v):
-                return h_block(v, sy.inv)
-
-        opts = self.solver_opts
-        if self._scale_refresh:
-            opts = dict(opts, refresh_every=refresh_period(sy.pnt))
-        self.last_doom = None
-        widths = None
-        with tracing.span("pcx.lobpcg"):
-            if self.solver in DAVIDSONS:
-                fn = davidson_sep if self.solver == "davidson" else jd_sep
-                kw = {k: v for k, v in self.solver_opts.items()
-                      if k == "subspace"}
-                res = fn(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                         maxiter=self.maxiter, **kw)
-            elif self.impl == "complex":
-                res, = self._complex_lanes(one_lane(h_func), one_lane(p_func),
-                                           x0[None], opts)
-            else:
-                # K1 computes the preconditioner in float32: off for "mixed"
-                rp = (self._rp_fused(sy.inv, m)
-                      if self.dtype == torch.complex64
-                      and self.solver != "mixed" else None)
-                limit = (min(self.maxiter, self.warm_maxiter)
-                         if warm and self.warm_maxiter > 0 else None)
-                widths = []
-                res = lobpcg_sep_rs(h_func, p_func, x0, cfg.nev, tol=self.tol,
-                                    maxiter=self.maxiter, locking=self.locking,
-                                    rp_fused=rp, limit=limit,
-                                    monitor=self._monitor(warm), widths=widths,
-                                    **opts)
-        self._sync()
-        wall = time.time() - t0 + x0_wall
-        _heartbeat()
-        return self._result(alpha, res, wall, widths, validate_result,
-                            verbose, raise_on_spurious)
+        res, = self._solve_group([np.asarray(alpha, dtype=float)],
+                                 None if x0 is None else [x0], [seed],
+                                 validate_result, verbose, raise_on_spurious)
+        return res
 
     def _result(self, alpha, res, wall: float, widths, validate_result: bool,
                 verbose: bool, raise_on_spurious: bool) -> EigenResult:
@@ -882,11 +821,11 @@ class KPointSolver:
         mixed) solve the members in lockstep on this solver's device, as
         JAX's vmapped ``_jitted_batch_rs`` and ``_jitted_batch`` do: one
         lane-batched solve, each lane computing what its serial solve
-        computes.  ``solver_impl="rs"`` runs ``lobpcg_sep_rs_lanes``
-        (kernels K1 and K3 in their lane forms, K2 over every lane's
-        columns) with each solve's warm cap and doom check;
+        computes, through the driver of ``solve``: ``solver_impl="rs"``
+        runs ``lobpcg_sep_rs_lanes`` (kernels K1, K2 and K3 over every
+        lane) with each solve's warm cap and doom check;
         ``solver_impl="complex"`` runs ``lobpcg_sep_lanes`` (K2 over every
-        lane's columns in complex64).  A group of one is ``solve``.
+        lane's columns in complex64).
         Davidson and JD solve the members one after another by ``solve``
         (JAX's batch programs run LOBPCG whatever the solver's name, which
         is not ported).  A group that does not fit in device memory
@@ -925,15 +864,13 @@ class KPointSolver:
         if x0s is not None and len(x0s) < n_req:
             raise ValueError(f"{len(x0s)} start blocks for {n_req} k-points")
 
-        lanes = self.solver not in DAVIDSONS
-
         def run(lo, hi):
             """Members lo..hi-1, as solve_batch returns them."""
-            if lanes and hi - lo > 1:
-                return self._solve_lanes(
+            if self.solver not in DAVIDSONS:
+                return self._solve_group(
                     alphas[lo:hi], None if x0s is None else x0s[lo:hi],
                     [seed + i for i in range(lo, hi)], validate_result,
-                    raise_on_spurious)
+                    False, raise_on_spurious)
             out = [self.solve(alphas[i], x0=None if x0s is None else x0s[i],
                               seed=seed + i, validate_result=validate_result,
                               raise_on_spurious=raise_on_spurious)
@@ -990,6 +927,31 @@ def _member_rank(mesh, n_req: int, j: int) -> int:
     n_k = axis_size(mesh, K_AXIS)
     per = -(-n_req // n_k)
     return int(mesh.mesh[j // per, 0])
+
+
+def _lane_axis(parts) -> torch.Tensor:
+    """The tensors ``parts`` on a leading lane axis: a view of the one
+    tensor of a group of one (stacking would copy it), else their stack."""
+    return parts[0][None] if len(parts) == 1 else torch.stack(parts)
+
+
+def _lane0(out):
+    """The one lane of a hook's output: a tensor or a tuple of them."""
+    return tuple(a[0] for a in out) if isinstance(out, tuple) else out[0]
+
+
+def _per_running(build):
+    """``build(lanes)`` for a tuple of running lanes, kept until the set of
+    running lanes changes."""
+    cache = {}
+
+    def get(lanes: tuple):
+        if lanes not in cache:
+            cache.clear()
+            cache[lanes] = build(lanes)
+        return cache[lanes]
+
+    return get
 
 
 def _p_func_bf16(inv: sym.HermSymbol):

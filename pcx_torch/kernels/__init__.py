@@ -11,15 +11,17 @@ of ``pcx/operators/pallas_kernels.py`` and two of the port's own:
   penalty block multiplies on either side of K2 (JAX leaves them to XLA),
   two entry points ``op_pre`` and ``op_post``, one pass each.
 
-K1 and K3 also have lane forms for the lockstep k-point batch, the same
-kernels over L problems in one launch: ``resid_precond_lanes`` and
-``gram9_lanes`` (K2 takes the lanes in its batch B).
+Every kernel takes the lanes of the lockstep k-point batch in one launch:
+K1 and K3 on a leading lane axis, K2 in its batch B, K4 and K5 on blocks
+and symbols with a lane axis.
 
 Each wrapper counts its launches in a plain integer attribute
-(``resid_precond.launches``), incremented only where the kernel launches;
-K2 also counts them by its batch B (``axis_dft.launches_by_batch``, 3 m
-in an operator apply on m columns, 3 L m over L lanes); K4 and K5 add the
-bytes of each launch to the program counters ``k4.bytes`` and ``k5.bytes``.
+(``resid_precond.launches``), incremented only where the kernel launches.
+K1's and K3's counts are lane-launches: one per lane served, so a launch
+over L lanes adds L (a reader reckons one lane's bytes per count); K2's,
+K4's and K5's count launches.  K2 also counts them by its batch B
+(``axis_dft.launches_by_batch``, 3 m in an operator apply on m columns,
+3 L m over L lanes); K4 and K5 add the bytes of each launch to the program counters ``k4.bytes`` and ``k5.bytes``.
 ``reset_launches`` also resets the program's other counters and span
 totals (``pcx_torch.tracing``).
 """
@@ -27,12 +29,11 @@ totals (``pcx_torch.tracing``).
 from pcx_torch import tracing
 from pcx_torch.kernels.axis_dft import axis_dft
 from pcx_torch.kernels.block_combine import block_combine
-from pcx_torch.kernels.gram9 import gram9, gram9_lanes
+from pcx_torch.kernels.gram9 import gram9
 from pcx_torch.kernels.op_blocks import op_post, op_pre
-from pcx_torch.kernels.resid_precond import resid_precond, resid_precond_lanes
+from pcx_torch.kernels.resid_precond import resid_precond
 
-WRAPPERS = (resid_precond, axis_dft, gram9, resid_precond_lanes, gram9_lanes,
-            block_combine, op_pre, op_post)
+WRAPPERS = (resid_precond, axis_dft, gram9, block_combine, op_pre, op_post)
 
 
 def reset_launches() -> None:

@@ -6,13 +6,14 @@ LOBPCG calls once per iteration through its ``rp_fused`` hook.  The CUDA
 source is ``csrc/resid_precond.cu``; its header states what bounds the
 kernel on the card and how the design answers it.
 
-``resid_precond_lanes`` is its lane form for the lockstep k-point batch
+The wrapper also takes a lane axis, for the lanes of a k-point batch
 (``KPointSolver.solve_batch``): L problems, x, hx (L, m, 3, D), lam (L, m)
 and one symbol per lane (L, 3, D), in ONE launch of the same kernel; JAX
-runs the TPU kernel's batch under ``jax.vmap``.
+runs the TPU kernel's batch under ``jax.vmap``.  ``resid_precond.launches``
+counts one per lane served.
 
-Both wrappers take the plain PyTorch version for CPU tensors only; for CUDA
-tensors they launch the kernel or raise.
+It takes the plain PyTorch version for CPU tensors only; for CUDA tensors
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,11 +27,11 @@ from pcx_torch.operators.blocks import h_block
 from pcx_torch.operators.symbols import HermSymbol
 
 
-def _check(x, hx, lam, inv_diag, inv_sd, lanes: bool = False):
-    lead = x.shape[:1] if lanes else ()
-    if x.dim() != 3 + len(lead) or x.shape[-2] != 3:
-        want = "(L, m, 3, D)" if lanes else "(m, 3, D)"
-        raise ValueError(f"x must be {want}, got {tuple(x.shape)}")
+def _check(x, hx, lam, inv_diag, inv_sd):
+    if x.dim() not in (3, 4) or x.shape[-2] != 3:
+        raise ValueError(f"x must be (m, 3, D) or (L, m, 3, D), got "
+                         f"{tuple(x.shape)}")
+    lead = x.shape[:-3]
     m, _, d = x.shape[-3:]
     want = {"x": (x, torch.complex64, lead + (m, 3, d)),
             "hx": (hx, torch.complex64, lead + (m, 3, d)),
@@ -47,8 +48,8 @@ def _check(x, hx, lam, inv_diag, inv_sd, lanes: bool = False):
 
 def resid_precond_plain(x, hx, lam, inv_diag, inv_sd):
     """Plain PyTorch K1: r = lam x - hx, its column sums of squares, and
-    w = P r with the Hermitian 3x3 symbol (unmasked).  Takes the one-lane
-    shapes or the lane form's, (L, m, 3, D) with symbols (L, 3, D)."""
+    w = P r with the Hermitian 3x3 symbol (unmasked), on either shape of
+    ``resid_precond``."""
     lead = x.shape[:-3]
     m, _, d = x.shape[-3:]
     r = lam[..., None, None] * x - hx
@@ -59,10 +60,25 @@ def resid_precond_plain(x, hx, lam, inv_diag, inv_sd):
     return w, sumsq
 
 
-def _launch(args, lanes: int, name: str):
-    x = args[0]
+def resid_precond(x: torch.Tensor, hx: torch.Tensor, lam: torch.Tensor,
+                  inv_diag: torch.Tensor, inv_sd: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w, sumsq) for x, hx complex64 (m, 3, D), lam float32 (m,),
+    inv_diag float32 (3, D), inv_sd complex64 (3, D) = (s12, s13, s23);
+    or for L lanes, x, hx (L, m, 3, D), lam (L, m) and symbols (L, 3, D),
+    lane l with its own symbol.
+
+    w = P (lam x - hx), complex64 shaped like x, unmasked; sumsq float32
+    (m,) or (L, m) is each column's ||lam x - hx||^2."""
+    _check(x, hx, lam, inv_diag, inv_sd)
+    if x.device.type == "cpu":
+        return resid_precond_plain(x, hx, lam, inv_diag, inv_sd)
+    if x.device.type != "cuda":
+        raise ValueError(f"resid_precond runs on cpu or cuda, not {x.device}")
+    args = (x, hx, lam, inv_diag, inv_sd)
     if not all(t.is_contiguous() for t in args):
-        raise ValueError(f"{name}: the kernel needs contiguous inputs")
+        raise ValueError("resid_precond: the kernel needs contiguous inputs")
+    lanes = x.shape[0] if x.dim() == 4 else 1
     lib = _build.load()
     m, _, d = x.shape[-3:]
     w = torch.empty_like(x)
@@ -74,48 +90,9 @@ def _launch(args, lanes: int, name: str):
         rc = lib.pcx_resid_precond(
             *(t.data_ptr() for t in args), w.data_ptr(), partial.data_ptr(),
             sumsq.data_ptr(), lanes, m, d, stream)
-    _build.check(rc, name)
+    _build.check(rc, "resid_precond")
+    resid_precond.launches += lanes
     return w, sumsq
 
 
-def resid_precond(x: torch.Tensor, hx: torch.Tensor, lam: torch.Tensor,
-                  inv_diag: torch.Tensor, inv_sd: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(w, sumsq) for x, hx complex64 (m, 3, D), lam float32 (m,),
-    inv_diag float32 (3, D), inv_sd complex64 (3, D) = (s12, s13, s23).
-
-    w = P (lam x - hx), complex64 (m, 3, D), unmasked; sumsq float32 (m,)
-    is each column's ||lam x - hx||^2."""
-    _check(x, hx, lam, inv_diag, inv_sd)
-    if x.device.type == "cpu":
-        return resid_precond_plain(x, hx, lam, inv_diag, inv_sd)
-    if x.device.type != "cuda":
-        raise ValueError(f"resid_precond runs on cpu or cuda, not {x.device}")
-    out = _launch((x, hx, lam, inv_diag, inv_sd), 1, "resid_precond")
-    resid_precond.launches += 1
-    return out
-
-
 resid_precond.launches = 0
-
-
-def resid_precond_lanes(x: torch.Tensor, hx: torch.Tensor, lam: torch.Tensor,
-                        inv_diag: torch.Tensor, inv_sd: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on L lanes in one launch: x, hx complex64 (L, m, 3, D), lam
-    float32 (L, m), inv_diag float32 (L, 3, D), inv_sd complex64 (L, 3, D),
-    lane l with its own symbol.  Returns w (L, m, 3, D) and sumsq (L, m),
-    lane l's those of ``resid_precond`` on lane l."""
-    _check(x, hx, lam, inv_diag, inv_sd, lanes=True)
-    if x.device.type == "cpu":
-        return resid_precond_plain(x, hx, lam, inv_diag, inv_sd)
-    if x.device.type != "cuda":
-        raise ValueError(f"resid_precond_lanes runs on cpu or cuda, not "
-                         f"{x.device}")
-    out = _launch((x, hx, lam, inv_diag, inv_sd), x.shape[0],
-                  "resid_precond_lanes")
-    resid_precond_lanes.launches += 1
-    return out
-
-
-resid_precond_lanes.launches = 0

@@ -32,9 +32,9 @@ one batched ``eigh`` per small problem for all lanes; ``lobpcg_sep_rs`` is
 its one-lane case.  JAX's batched programs run without K1 and K2
 (``fusions=False``, pcx/bandstructure.py:569-576, 1142-1145), because
 its per-solve Pallas programs could not run under ``vmap`` on the TPU; on
-the card the kernels are the path, so the lanes run K1 (its lane form), K2
-and, with ``rr_gram="pallas"``, K3 (its lane form) wherever the serial
-solve runs them.
+the card the kernels are the path, so the lanes run K1, K2 and, with
+``rr_gram="pallas"``, K3 over every running lane in one launch, wherever
+the serial solve runs them.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ import torch
 
 from pcx_torch import tracing
 from pcx_torch.config import MAXITER, TOL
-from pcx_torch.kernels.gram9 import gram9, gram9_lanes
+from pcx_torch.kernels.gram9 import gram9
 from pcx_torch.solvers import rayleigh_ritz as rr
 from pcx_torch.solvers.lobpcg import (STOP_COUNTERS, SolveResult, Status,
                                       _NP_REAL, _per_lane, lobpcg_gep)
@@ -273,13 +273,8 @@ def lobpcg_sep_rs(
         w_cap=w_cap, col_patience=col_patience, lam_tol=lam_tol,
         lam_patience=lam_patience, lam_res_tol=lam_res_tol, rr_gram=rr_gram,
         limit=[limit], monitor=[monitor],
-        widths=[[] if widths is None else widths], gram=_gram9_one)
+        widths=[[] if widths is None else widths])
     return res
-
-
-def _gram9_one(*blocks: torch.Tensor) -> torch.Tensor:
-    """K3 on the one lane of (1, m, D) blocks (the serial wrapper's)."""
-    return gram9(*(a[0] for a in blocks))[None]
 
 
 def lobpcg_sep_rs_lanes(
@@ -306,7 +301,6 @@ def lobpcg_sep_rs_lanes(
     limit=None,
     monitor=None,
     widths: Optional[list] = None,
-    gram: Optional[Callable[..., torch.Tensor]] = None,
 ) -> list:
     """``lobpcg_sep_rs`` on L independent problems in lockstep: the
     production LOBPCG with a leading lane axis, as JAX's k-point batch runs
@@ -318,9 +312,8 @@ def lobpcg_sep_rs_lanes(
     map a block (R, c, ...) of the R running lanes ``lanes`` (a tuple of
     lane indices, in order) to H and the preconditioner of each lane;
     ``rp_fused(x, hx, lam, lanes)`` is the fused hook on flat (R, m, D)
-    blocks and (R, m) Ritz values (kernel K1's lane form).  ``gram``: the
-    fused Gram of ``rr_gram="pallas"`` on six (R, m, D) blocks, default
-    kernel K3's lane form ``gram9_lanes``.
+    blocks and (R, m) Ritz values (kernel K1 on the lane axis).
+    ``rr_gram="pallas"`` runs kernel K3 on the lane axis.
 
     Every small Hermitian problem of an iteration is one batched
     ``torch.linalg.eigh`` over the lanes, and the iteration reads the
@@ -362,7 +355,6 @@ def lobpcg_sep_rs_lanes(
     noise_floor = 30.0 * (dim ** 0.5) * float(finfo.eps)
     rr_split = rr.split_for(rdtype)
     width = width_rule(w_cap, m, rr_gram)
-    gram = gram9_lanes if gram is None else gram
     refresh = _per_lane(refresh_every, n_lanes)
     stops = [maxiter if lim is None else min(lim, maxiter)
              for lim in _per_lane(limit, n_lanes)]
@@ -533,7 +525,7 @@ def lobpcg_sep_rs_lanes(
         with tracing.span("pcx.rr"):
             basis_mask = torch.cat((x_ok, w_ok, p_ok), dim=-1)
             if rr_gram == "pallas":
-                t = gram(*(a.to(torch.complex64)
+                t = gram9(*(a.to(torch.complex64)
                            for a in (x, w, pf, hx, hw, hpf)))
             else:
                 sf = torch.cat((x, w, pf), dim=-2)

@@ -518,10 +518,10 @@ def test_bench_single_point_on_cuda():
 
 @pytest.mark.parametrize("lanes", [3, 1])
 def test_k1_lanes_cuda_matches_plain(lanes):
-    """K1's lane form: one launch for all lanes, each lane with its own
-    symbol, against the plain lane form (the one-lane tolerances), and lane
-    i against the one-lane kernel on lane i."""
-    from pcx_torch.kernels import resid_precond_lanes
+    """K1 on a lane axis: one launch for all lanes, counted once per lane,
+    each lane with its own symbol, against the plain version (the one-lane
+    tolerances), and lane i against the kernel without a lane axis on lane
+    i."""
     dev = _cuda()
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -532,12 +532,12 @@ def test_k1_lanes_cuda_matches_plain(lanes):
             torch.rand((lanes, m), generator=gen, device=dev) * 100,
             torch.rand((lanes, 3, d), generator=gen, device=dev),
             0.1 * c(lanes, 3, d))
-    n0, n1 = resid_precond_lanes.launches, resid_precond.launches
-    w, ss = resid_precond_lanes(*args)
+    n0 = resid_precond.launches
+    w, ss = resid_precond(*args)
     w_p, ss_p = resid_precond_plain(*args)
     torch.cuda.synchronize()
-    assert resid_precond_lanes.launches == n0 + 1
-    assert resid_precond.launches == n1
+    assert resid_precond.launches == n0 + lanes
+    assert w.shape == (lanes, m, 3, d) and ss.shape == (lanes, m)
     torch.testing.assert_close(w, w_p, rtol=1e-5,
                                atol=1e-6 * float(w_p.abs().max()))
     torch.testing.assert_close(ss, ss_p, rtol=1e-5, atol=0.0)
@@ -545,60 +545,66 @@ def test_k1_lanes_cuda_matches_plain(lanes):
         w1, ss1 = resid_precond(*(a[i] for a in args))
         torch.testing.assert_close(w[i], w1, rtol=0.0, atol=0.0)
         torch.testing.assert_close(ss[i], ss1, rtol=0.0, atol=0.0)
+    assert resid_precond.launches == n0 + 2 * lanes
 
 
 @pytest.mark.parametrize("lanes", [3, 1])
 def test_k3_lanes_cuda_matches_plain(lanes):
-    """K3's lane form: one launch of each kernel for all lanes, against the
-    plain lane form (1e-5 of max|T|, the one-lane tolerance), and lane i
-    against the one-lane kernel on lane i (a partial depends only on its
-    lane and chunk)."""
-    from pcx_torch.kernels import gram9_lanes
+    """K3 on a lane axis: one launch of each kernel for all lanes, counted
+    once per lane, against the plain version (1e-5 of max|T|, the one-lane
+    tolerance), and lane i against the kernel without a lane axis on lane
+    i (a partial depends only on its lane and chunk)."""
     dev = _cuda()
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     m, d = 16, 3 * 32 ** 3 + 37
     blocks = [torch.randn((lanes, m, d), generator=gen, device=dev,
                           dtype=torch.complex64) for _ in range(6)]
-    n0, n1 = gram9_lanes.launches, gram9.launches
-    t = gram9_lanes(*blocks)
+    n0 = gram9.launches
+    t = gram9(*blocks)
     t_p = gram9_plain(*blocks)
     torch.cuda.synchronize()
-    assert gram9_lanes.launches == n0 + 1 and gram9.launches == n1
+    assert gram9.launches == n0 + lanes
     assert t.shape == (lanes, 3 * m, 3 * m) and t.dtype == torch.complex128
     torch.testing.assert_close(t, t_p, rtol=0.0,
                                atol=1e-5 * float(t_p.abs().max()))
     for i in range(lanes):
         torch.testing.assert_close(t[i], gram9(*(b[i] for b in blocks)),
                                    rtol=0.0, atol=0.0)
+    assert gram9.launches == n0 + 2 * lanes
     # a width that is not 16 and an odd D: the unvectorized loads
     small = [b[:, :5, :4099].contiguous() for b in blocks]
     t_p = gram9_plain(*small, chunk=512)
-    torch.testing.assert_close(gram9_lanes(*small, chunk=512), t_p,
+    torch.testing.assert_close(gram9(*small, chunk=512), t_p,
                                rtol=0.0, atol=1e-5 * float(t_p.abs().max()))
 
 
 def test_solve_batch_lanes_on_cuda_match_serial():
     """A lane-batched complex64 solve of three fcc points at N=32 on the
-    card (K1 and K3 in their lane forms, rr_gram="pallas") against the same
+    card (K1 and K3 on the lane axis, rr_gram="pallas") against the same
     points solved one by one on the card from the same starts: each member
     CONVERGED or FLOOR, not spurious, omega_re within 1e-4 of the serial
-    solve (complex64 solves, another order of rounding)."""
-    from pcx_torch.kernels import gram9_lanes, resid_precond_lanes
+    solve (complex64 solves, another order of rounding).  K1 counts each
+    lane once in each of its iterations and at its stop, K3 in each of its
+    iterations, in the group as in a solve."""
     from pcx_torch.lattices import k_path
     dev = _cuda()
     alphas = [k_path("fcc")[i] for i in (9, 10, 11)]
     kps = KPointSolver(ProblemConfig(n=32, lattice="fcc", nev=6),
                        device=dev, dtype=torch.complex64,
                        solver_opts={"rr_gram": "pallas"})
-    n0 = (resid_precond_lanes.launches, gram9_lanes.launches,
-          resid_precond.launches, gram9.launches)
+
+    def count():
+        return resid_precond.launches, gram9.launches
+
+    n0 = count()
     res = kps.solve_batch(alphas, seed=4)
-    n1 = (resid_precond_lanes.launches, gram9_lanes.launches,
-          resid_precond.launches, gram9.launches)
-    assert n1[0] > n0[0] and n1[1] > n0[1] and n1[2:] == n0[2:]
+    its = sum(r.iterations for r in res)
+    assert count() == (n0[0] + its + len(res), n0[1] + its)
     for i, (a, r) in enumerate(zip(alphas, res)):
+        n0 = count()
         s = kps.solve(a, seed=4 + i)
+        assert count() == (n0[0] + s.iterations + 1, n0[1] + s.iterations)
         assert r.status in (1, 5) and s.status in (1, 5)
         assert not r.report.spurious
         np.testing.assert_allclose(r.omega_re, s.omega_re, atol=1e-4)

@@ -1,9 +1,9 @@
-"""The lockstep k-point batch of the port (``lobpcg_sep_rs_lanes``, the
-lane forms of kernels K1 and K3, ``KPointSolver.solve_batch`` and
+"""The lockstep k-point batch of the port (``lobpcg_sep_rs_lanes``,
+kernels K1 and K3 on a lane axis, ``KPointSolver.solve_batch`` and
 ``bandgap(k_batch=)``) against the JAX package's vmapped batch
 (``jax.vmap`` of ``pcx.solvers.lobpcg_rs.lobpcg_sep_rs``, which
 ``_jitted_batch_rs`` runs) and against the port's own serial solves, on
-the CPU in complex128 (the kernels' plain lane forms in float32)."""
+the CPU in complex128 (the kernels' plain versions in float32)."""
 
 import json
 import os
@@ -22,7 +22,7 @@ from pcx.solvers.lobpcg import Status
 from pcx_torch import bandstructure as bs
 from pcx_torch import interop
 from pcx_torch.config import ProblemConfig
-from pcx_torch.kernels import gram9_lanes, resid_precond, resid_precond_lanes
+from pcx_torch.kernels import resid_precond
 from pcx_torch.kernels.gram9 import gram9, gram9_plain
 from pcx_torch.kernels.resid_precond import resid_precond_plain
 from pcx_torch.solvers import lobpcg_rs as trs
@@ -185,9 +185,9 @@ def _k1_lanes(rng, lanes, m, d):
 
 
 def test_k1_plain_lanes_match_vmapped_pallas_interpret(rng):
-    """(c) K1's plain lane form against ``jax.vmap`` of the Pallas kernel in
-    interpret mode (f32 both sides, rtol 1e-5), and lane i against the
-    one-lane call on lane i."""
+    """(c) K1's plain version on a lane axis against ``jax.vmap`` of the
+    Pallas kernel in interpret mode (f32 both sides, rtol 1e-5), and lane
+    i against the call without a lane axis on lane i."""
     lanes, m, d = 3, 5, 1537     # D not a multiple of the Pallas chunk
     x, hx, lam, idg, isd = _k1_lanes(rng, lanes, m, d)
     pair = lambda a: (jnp.asarray(a.real), jnp.asarray(a.imag))
@@ -199,9 +199,9 @@ def test_k1_plain_lanes_match_vmapped_pallas_interpret(rng):
     (wr, wi), ss = jax.vmap(one)(pair(x), pair(hx), jnp.asarray(lam),
                                  jnp.asarray(idg), pair(isd))
     args = [torch.as_tensor(a) for a in (x, hx, lam, idg, isd)]
-    n0 = resid_precond_lanes.launches
-    w, sumsq = resid_precond_lanes(*args)
-    assert resid_precond_lanes.launches == n0    # the plain form: no launch
+    n0 = resid_precond.launches
+    w, sumsq = resid_precond(*args)
+    assert resid_precond.launches == n0    # the plain version: no launch
     assert w.shape == (lanes, m, 3, d) and sumsq.shape == (lanes, m)
     np.testing.assert_allclose(np.sqrt(sumsq.numpy()), np.sqrt(np.asarray(ss)),
                                rtol=1e-5)
@@ -217,9 +217,10 @@ def test_k1_plain_lanes_match_vmapped_pallas_interpret(rng):
 
 
 def test_k3_plain_lanes_match_vmapped_pallas_interpret(rng):
-    """(c) K3's plain lane form against ``jax.vmap`` of the Pallas kernel in
-    interpret mode (f32 chunk partials summed in f64 both sides, rtol
-    1e-5), and lane i against the one-lane call on lane i."""
+    """(c) K3's plain version on a lane axis against ``jax.vmap`` of the
+    Pallas kernel in interpret mode (f32 chunk partials summed in f64 both
+    sides, rtol 1e-5), lane i against the call without a lane axis on
+    lane i, and a block of neither shape refused."""
     lanes, m, d, chunk = 3, 4, 5000, 1024
     blocks = [(rng.normal(size=(lanes, m, d))
                + 1j * rng.normal(size=(lanes, m, d))).astype(np.complex64)
@@ -233,7 +234,9 @@ def test_k3_plain_lanes_match_vmapped_pallas_interpret(rng):
                                  for p in (a.real, a.imag)))
     want = np.asarray(t_re) + 1j * np.asarray(t_im)
     tb = [torch.as_tensor(a) for a in blocks]
-    got = gram9_lanes(*tb, chunk=chunk)
+    n0 = gram9.launches
+    got = gram9(*tb, chunk=chunk)
+    assert gram9.launches == n0    # the plain version: no launch
     assert got.dtype == torch.complex128 and got.shape == (lanes, 3 * m,
                                                            3 * m)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
@@ -242,8 +245,9 @@ def test_k3_plain_lanes_match_vmapped_pallas_interpret(rng):
                                                  chunk=chunk),
                                    rtol=0, atol=1e-9)
     torch.testing.assert_close(gram9_plain(*tb, chunk=chunk), got)
-    with pytest.raises(ValueError, match="gram9_lanes"):
-        gram9_lanes(*(a[0] for a in tb))
+    for bad in ([a[0, 0] for a in tb], [a[None] for a in tb]):
+        with pytest.raises(ValueError, match="gram9"):
+            gram9(*bad)
 
 
 FCC_ROWS = (9, 10, 11)
@@ -280,15 +284,19 @@ def test_solve_batch_matches_jax_batch(monkeypatch, diel_type, eps_opt):
 
 def test_solve_batch_paths(monkeypatch):
     """Which path a group takes: complex64 softlock with rr_gram="pallas"
-    runs one lane solve through K1's and K3's lane forms; a group of one
-    runs ``solve``; solver_impl="complex" runs one ``lobpcg_sep_lanes``;
-    Davidson and JD, under either impl, run ``solve`` per member; a group
-    that mixes block widths raises."""
+    runs one lane solve through K1 and K3 on the lane axis; a group of one
+    runs one lane of the same driver, through the one-lane entry
+    ``lobpcg_sep_rs`` (the name the benchmark's planted faults patch);
+    solver_impl="complex" runs one
+    ``lobpcg_sep_lanes``; Davidson and JD, under either impl, run ``solve``
+    per member; a group that mixes block widths raises."""
     from pcx.lattices import k_path
     alphas = [k_path("fcc")[i] for i in FCC_ROWS]
-    calls = {"k1": [], "k3": [], "solve": 0}
-    k1, k3, solve = (bs.resid_precond_lanes, trs.gram9_lanes,
-                     bs.KPointSolver.solve)
+    calls = {"k1": [], "k3": [], "solve": 0, "group": [], "one": 0}
+    k1, k3, solve, group, one = (bs.resid_precond, trs.gram9,
+                                 bs.KPointSolver.solve,
+                                 bs.KPointSolver._solve_group,
+                                 bs.lobpcg_sep_rs)
 
     def k1_spy(*a):
         calls["k1"].append(a[0].shape[0])
@@ -302,19 +310,34 @@ def test_solve_batch_paths(monkeypatch):
         calls["solve"] += 1
         return solve(self, *a, **k)
 
-    monkeypatch.setattr(bs, "resid_precond_lanes", k1_spy)
-    monkeypatch.setattr(trs, "gram9_lanes", k3_spy)
+    def group_spy(self, alphas, *a, **k):
+        calls["group"].append(len(alphas))
+        return group(self, alphas, *a, **k)
+
+    def one_spy(*a, **k):
+        calls["one"] += 1
+        return one(*a, **k)
+
+    monkeypatch.setattr(bs, "lobpcg_sep_rs", one_spy)
+    monkeypatch.setattr(bs, "resid_precond", k1_spy)
+    monkeypatch.setattr(trs, "gram9", k3_spy)
     monkeypatch.setattr(bs.KPointSolver, "solve", solve_spy)
+    monkeypatch.setattr(bs.KPointSolver, "_solve_group", group_spy)
     cfg = ProblemConfig(n=8, lattice="fcc", nev=4)
     kps = bs.KPointSolver(cfg, device="cpu", dtype=torch.complex64,
                           tol=1e-5, solver_opts={"rr_gram": "pallas"})
     res = kps.solve_batch(alphas, seed=3)
     assert calls["solve"] == 0 and calls["k1"] and calls["k3"]
-    assert calls["k1"][0] == calls["k3"][0] == 3
+    assert calls["k1"][0] == calls["k3"][0] == 3 and calls["group"] == [3]
+    assert calls["one"] == 0
     assert all(r.status in (Status.CONVERGED, Status.FLOOR) for r in res)
     assert not any(r.report.spurious for r in res)
+    calls["k1"].clear()
+    calls["k3"].clear()
     kps.solve_batch(alphas[:1])
-    assert calls["solve"] == 1
+    assert calls["solve"] == 0 and calls["group"] == [3, 1]
+    assert calls["one"] == 1
+    assert set(calls["k1"]) == set(calls["k3"]) == {1}
     for kw in ({"solver": "davidson"}, {"solver": "jd"},
                {"solver": "jd", "solver_impl": "complex"}):
         calls["solve"] = 0
