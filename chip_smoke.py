@@ -33,9 +33,10 @@ failure ends the run with a non-zero exit:
              the wrapper's host cost per call.
 5. k3      — K3 gram9 vs its plain version at m=16, D=3*120^3, chunk 2048
              (and both against complex128); timed beside the stacked
-             ``rr.gram_f64`` (the rr_gram="xla" route), with and without the
-             torch.cat that builds its input; then on a lane axis at 4
-             lanes, as phase 3's, beside the stacked ``rr.gram_f64`` of the lanes;
+             cuBLAS route (K6's plain version, the rr_gram="xla" route
+             before K6), with and without the torch.cat that builds its
+             input; then on a lane axis at 4 lanes, as phase 3's, beside
+             the cuBLAS route of the stacked lanes;
              then K4 block_combine at the main path's three calls (m=16,
              N=120: the second SVQB's projection and scaling, the
              Rayleigh-Ritz update of the stacked block), each
@@ -46,7 +47,14 @@ failure ends the run with a non-zero exit:
              m=16 (pre, post, post with the penalty and a shift), each bit
              for bit against the eager composition it replaces, its error
              against complex128, timed beside its bytes bound and that
-             composition (``library_ms``).
+             composition (``library_ms``); then K6 gram_chunks at N=120,
+             m=16 (a 16 x 16 Gram, the second SVQB's projection [X|W]^H P,
+             the six-block 48 x 48 Rayleigh-Ritz Gram), each against
+             complex128 (no worse than 1.25x the cuBLAS route, at most
+             5e-7), two launches bit for bit, timed beside its bound (bytes,
+             or operations at the f32 peak for 48 x 48), its plain version
+             (with its concatenations) and the cuBLAS route on operands
+             stacked beforehand (``library_ms``).
 6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
@@ -256,7 +264,9 @@ rr_gram="xla" route), reset again just before phase 9 and read after it
 (K1, K2, K3 and K4 must all have launched; K4 then joins every later check
 that all the serial kernels launched); after both, the counter
 ``dense.matmul`` (complex64 block combinations past K4's limits, which
-take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0; K5
+take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0, and
+``dense.gram_plain`` (complex64 Grams past K6's limits, which take the
+cuBLAS route) 0 and ``dense.gram`` K6's launches, more than 0; K5
 (``op_pre``, ``op_post``) must launch wherever K4 must; and once
 more before phase 11: read after its sweep (K1, K2, K3) and after its
 single solves (K1, K2), and around each solve of phase 13, around phase
@@ -323,7 +333,7 @@ FP32_FMA, TF32X3 = "cuda fp32 fma", "cuda mma.sync 3xTF32"
 SERIAL_KERNELS = ("resid_precond", "axis_dft", "gram9")
 # The kernels of the default route (rr_gram="xla"), phases 7-8.
 PATH_KERNELS = ("resid_precond", "axis_dft", "block_combine", "op_pre",
-                "op_post")
+                "op_post", "gram_chunks")
 # Phase 22: the lockstep k-point batch.
 LANES_K = 4                  # lanes of K1 / K3 on a lane axis (phases 3, 5)
 LANE_COUNTS = (1, 2, 4)      # (a): lanes of the timed groups
@@ -744,7 +754,7 @@ def phase_k2(gen, dev, peak: float) -> dict:
 
 def phase_k3(gen, dev, peak: float) -> dict:
     from pcx_torch.kernels.gram9 import gram9, gram9_plain
-    from pcx_torch.solvers import rayleigh_ritz as rr
+    from pcx_torch.kernels.gram_chunks import gram_chunks_plain
     m, d = 16, 3 * N ** 3
     blocks = [torch.randn((m, d), generator=gen, device=dev,
                           dtype=torch.complex64) for _ in range(6)]
@@ -756,23 +766,23 @@ def phase_k3(gen, dev, peak: float) -> dict:
     err = max_err(t_k, t_p)
     scale = float(t_p.abs().max())
     err_k128, err_p128 = max_err(t_k, t_128), max_err(t_p, t_128)
-    err_lib = max_err(rr.gram_f64(s, hs), t_p)
-    lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
+    err_lib = max_err(gram_chunks_plain((s,), (hs,)), t_p)
+    lib_ms = cuda_ms(lambda: gram_chunks_plain((s,), (hs,)))
     del s, hs, t_128
     ms = cuda_ms(lambda: gram9(*blocks))
     plain_ms = cuda_ms(lambda: gram9_plain(*blocks))
-    cat_ms = cuda_ms(lambda: rr.gram_f64(torch.cat(blocks[:3]),
-                                         torch.cat(blocks[3:])))
+    cat_ms = cuda_ms(lambda: gram_chunks_plain(blocks[:3], blocks[3:]))
     # (3m)^2 D complex conjugate products (8 flop); six blocks in, T out
     rec, text = tensor_core_record(ms, lib_ms, 8.0 * (3 * m) ** 2 * d,
                                    8.0 * 6 * m * d + 16.0 * (3 * m) ** 2,
                                    peak)
     print(f"phase k3: m={m} D={d} chunk 2048 max|dT|/max|T|="
           f"{err / scale:.3e} (vs complex128: kernel {err_k128 / scale:.3e},"
-          f" plain {err_p128 / scale:.3e}; stacked gram_f64 vs plain "
-          f"{err_lib / scale:.3e}); kernel {ms:.3f} ms plain {plain_ms:.3f} "
-          f"ms library gram_f64 on the stacked blocks {lib_ms:.3f} ms, with "
-          f"the two torch.cat {cat_ms:.3f} ms; {text}", flush=True)
+          f" plain {err_p128 / scale:.3e}; the cuBLAS route at chunk 256 vs "
+          f"plain {err_lib / scale:.3e}); kernel {ms:.3f} ms plain "
+          f"{plain_ms:.3f} ms library (the cuBLAS route on the stacked "
+          f"blocks) {lib_ms:.3f} ms, with the two torch.cat {cat_ms:.3f} ms;"
+          f" {text}", flush=True)
     if not err <= 1e-5 * scale:
         fail("K3 disagrees with its plain version (atol 1e-5*max|T|)")
     return {"name": "gram9", "route": "cuda",
@@ -788,10 +798,10 @@ def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
     """K3 on a lane axis: six (lanes, 16, 3*120^3) blocks against the
     plain version (phase 5's tolerance), lane 0 against the launch without
     a lane axis bit for bit, timed beside the bound, ``lanes`` one-lane
-    launches and the batched stacked ``rr.gram_f64`` (the rr_gram="xla"
-    route)."""
+    launches and the cuBLAS route of the stacked lanes (K6's plain
+    version, the rr_gram="xla" route before K6)."""
     from pcx_torch.kernels.gram9 import gram9, gram9_plain
-    from pcx_torch.solvers import rayleigh_ritz as rr
+    from pcx_torch.kernels.gram_chunks import gram_chunks_plain
     m, d = 16, 3 * N ** 3
     blocks = [torch.randn((lanes, m, d), generator=gen, device=dev,
                           dtype=torch.complex64) for _ in range(6)]
@@ -804,7 +814,7 @@ def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
     ms = cuda_ms(lambda: gram9(*blocks))
     plain_ms = cuda_ms(lambda: gram9_plain(*blocks))
     s, hs = torch.cat(blocks[:3], dim=1), torch.cat(blocks[3:], dim=1)
-    lib_ms = cuda_ms(lambda: rr.gram_f64(s, hs))
+    lib_ms = cuda_ms(lambda: gram_chunks_plain((s,), (hs,)))
     del s, hs
     rec, text = tensor_core_record(ms, lib_ms,
                                    8.0 * lanes * (3 * m) ** 2 * d,
@@ -814,7 +824,7 @@ def phase_k3_lanes(gen, dev, peak: float, one_ms: float,
           f"{err / scale:.3e}; lane 0 equals the one-lane launch: {same}; "
           f"kernel {ms:.3f} ms ({ms / lanes:.3f} ms per lane against "
           f"{one_ms:.3f} ms for one lane) plain {plain_ms:.3f} ms library "
-          f"gram_f64 on the stacked lanes {lib_ms:.3f} ms; {text}",
+          f"(the cuBLAS route on the stacked lanes) {lib_ms:.3f} ms; {text}",
           flush=True)
     if not (err <= 1e-5 * scale and same):
         fail("K3 on a lane axis disagrees with its plain version (atol "
@@ -973,6 +983,73 @@ def phase_k5(gen, dev, m: int = 16) -> dict:
     return {"name": "op_post", "route": "cuda", "arith": FP32_FMA,
             "source": "pcx_torch/kernels/csrc/op_blocks.cu",
             "replaces": None, **post, "calls": out}
+
+
+def phase_k6(gen, dev, peak: float, m: int = 16) -> dict:
+    """K6 gram_chunks at the main path's Grams at N=120, m=16: a 16 x 16
+    Gram, the second SVQB's projection [X|W]^H P (one launch that reads P
+    once) and the six-block Rayleigh-Ritz Gram [X|W|P]^H [HX|HW|HP].  Each
+    against complex128 (relative Frobenius error no worse than 1.25x the
+    cuBLAS route's and at most 5e-7), two launches bit for bit; timed
+    beside its bound (bytes, or operations at the f32 peak), the plain
+    version (the cuBLAS route with its concatenations) and the cuBLAS route
+    on operands stacked beforehand (``library_ms``)."""
+    from pcx_torch.kernels.gram_chunks import (bytes_moved, gram_chunks,
+                                               gram_chunks_plain)
+    d = 3 * N ** 3
+    c = lambda *sh: torch.randn(sh, generator=gen, device=dev,
+                                dtype=torch.complex64)
+    stack, hstack = c(3 * m, d), c(3 * m, d)
+    s3 = [stack[i * m:(i + 1) * m] for i in range(3)]
+    h3 = [hstack[i * m:(i + 1) * m] for i in range(3)]
+    calls = {"gram16": ((s3[0],), (h3[0],)),
+             "projection": ((s3[0], s3[1]), (s3[2],)),
+             "rayleigh_ritz": (tuple(s3), tuple(h3))}
+    out = {}
+    for name, (left, right) in calls.items():
+        got, again = gram_chunks(left, right), gram_chunks(left, right)
+        lstack, rstack = torch.cat(left), torch.cat(right)
+        exact = gram_chunks_plain((lstack.to(torch.complex128),),
+                                  (rstack.to(torch.complex128),))
+        norm = float(torch.linalg.vector_norm(exact))
+
+        def rel(a):
+            return float(torch.linalg.vector_norm(a.to(torch.complex128)
+                                                  - exact)) / norm
+
+        err_k = rel(got)
+        err_lib = rel(gram_chunks_plain((lstack,), (rstack,)))
+        same = bool(torch.equal(got, again))
+        del got, again, exact
+        ms = cuda_ms(lambda: gram_chunks(left, right))
+        plain_ms = cuda_ms(lambda: gram_chunks_plain(left, right))
+        lib_ms = cuda_ms(lambda: gram_chunks_plain((lstack,), (rstack,)))
+        del lstack, rstack
+        p, q = (sum(b.shape[0] for b in side) for side in (left, right))
+        nbytes = bytes_moved(left, right)
+        b = bound(8.0 * p * q * d, nbytes, peak)
+        print(f"phase k6 {name}: {p} x {q} rows at D={d}: relative error "
+              f"vs complex128 kernel {err_k:.3e} cuBLAS route {err_lib:.3e}"
+              f" ({err_k / err_lib:.3f}x); two launches equal {same}; "
+              f"kernel {ms:.3f} ms plain (with its concatenations) "
+              f"{plain_ms:.3f} ms library (the cuBLAS route, stacked) "
+              f"{lib_ms:.3f} ms bound {b['bound_ms']:.3f} ms ({b['bound_by']}"
+              f", {nbytes} bytes) = {100 * b['bound_ms'] / ms:.1f}% reached",
+              flush=True)
+        if not same:
+            fail(f"K6 {name}: two launches differ")
+        if not (err_k <= 1.25 * err_lib and err_k <= 5e-7):
+            fail(f"K6 {name}: error against complex128 {err_k:.3e} over "
+                 f"1.25x the cuBLAS route's {err_lib:.3e} or 5e-7")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     **b, "share": b["bound_ms"] / ms, "bytes": nbytes,
+                     "err_c128": err_k, "err_c128_library": err_lib}
+    del stack, hstack, s3, h3, calls
+    torch.cuda.empty_cache()
+    rr_rec = out["rayleigh_ritz"]
+    return {"name": "gram_chunks", "route": "cuda", "arith": FP32_FMA,
+            "source": "pcx_torch/kernels/csrc/gram_chunks.cu",
+            "replaces": None, **rr_rec, "calls": out}
 
 
 def phase_operator(gen, dev, n: int = N, diel_type: str = "chiral"):
@@ -3005,14 +3082,23 @@ def phase_complex_lanes(dev, n: int = N, golden: bool = True,
 def dense_routes(where: str) -> None:
     """Gate the dense algebra's routes since the last counter reset: every
     complex64 block combination launched K4 (``dense.k4`` > 0), none took
-    ``torch.matmul`` (``dense.matmul`` 0)."""
+    ``torch.matmul`` (``dense.matmul`` 0); every complex64 Gram launched
+    K6 (``dense.gram`` > 0, as many as K6's launches), none took its plain
+    version (``dense.gram_plain`` 0)."""
+    from pcx_torch import kernels as kmod
     from pcx_torch import tracing
     got = {k: v for k, v in tracing.counts().items()
-           if k.startswith(("dense.", "k4."))}
-    print(f"phase routes: {got} in {where}", flush=True)
+           if k.startswith(("dense.", "k4.", "gram."))}
+    launched = kmod.launches()["gram_chunks"]
+    print(f"phase routes: {got}, K6 launches {launched} in {where}",
+          flush=True)
     if got.get("dense.matmul", 0) or not got.get("dense.k4", 0):
         fail(f"a complex64 block combination took torch.matmul in "
              f"{where}: {got}")
+    if (got.get("dense.gram_plain", 0) or not got.get("dense.gram", 0)
+            or got["dense.gram"] != launched):
+        fail(f"a complex64 Gram took the cuBLAS route in {where}: {got}, "
+             f"K6 launches {launched}")
 
 
 def main() -> None:
@@ -3029,6 +3115,7 @@ def main() -> None:
                     phase_k3_lanes(gen, dev, peak, kernels[2]["ms"])]
     kernels.append(phase_k4(gen, dev, peak))
     kernels.append(phase_k5(gen, dev))
+    kernels.append(phase_k6(gen, dev, peak))
     phase_operator(gen, dev)
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)

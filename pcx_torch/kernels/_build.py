@@ -46,6 +46,7 @@ SIGNATURES = {
     "pcx_gram9_chunks": ([_LL, _I], _LL),
     "pcx_block_combine": ([_P, _P, _P], _I),
     "pcx_op_blocks": ([_P, _P, ctypes.c_float, _P], _I),
+    "pcx_gram_chunks": ([_P, _P, _P], _I),
 }
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from pcx_torch.kernels import _build
-from pcx_torch.solvers import rayleigh_ritz as rr
+from pcx_torch.kernels.gram_chunks import gram_chunks_plain
 
 NAMES = ("x", "w", "p", "hx", "hw", "hp")
 
@@ -47,10 +47,9 @@ def _check(blocks):
 
 def gram9_plain(x, w, p, hx, hw, hp, chunk: int = 2048) -> torch.Tensor:
     """Plain PyTorch K3: complex64 ``torch.matmul`` partials per D-chunk of
-    the stacked blocks, summed in complex128 (``rr.gram_f64``), on either
-    shape of ``gram9``."""
-    return rr.gram_f64(torch.cat((x, w, p), dim=-2),
-                       torch.cat((hx, hw, hp), dim=-2), chunk=chunk)
+    the stacked blocks, summed in complex128 (K6's plain version), on
+    either shape of ``gram9``."""
+    return gram_chunks_plain((x, w, p), (hx, hw, hp), chunk=chunk)
 
 
 def gram9(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,

@@ -6,7 +6,8 @@ Port of ``pcx/solvers/lobpcg_rs.py`` (``rs_solver_parts`` composed as
 ``lobpcg_sep_rs``, lines 43-605): fixed-shape masked soft locking, the
 ``w_cap`` compaction of the W and P blocks, SVQB-with-dropping
 orthonormalization, the complex128-accumulated
-Rayleigh-Ritz Gram (stacked [X|W|P], or kernel K3 with ``rr_gram="pallas"``),
+Rayleigh-Ritz Gram (of the six blocks [X|W|P], [HX|HW|HP]: kernel K6 on the
+card, or kernel K3 with ``rr_gram="pallas"``),
 HX/HP refresh, the FLOOR heuristics
 (``floor_patience``, ``col_patience``, ``lam_tol``/``lam_patience``/
 ``lam_res_tol``) and the NaN, stagnation and blow-up guards.  The reference
@@ -224,14 +225,15 @@ def lobpcg_sep_rs(
     one fused pass (kernel K1); ``p_func`` is then not called in the loop.
 
     ``rr_gram`` keeps the JAX option's name and values: ``"xla"`` forms the
-    Rayleigh-Ritz Gram as one stacked [X|W|P]^H [HX|HW|HP] ``gram_f64`` and
-    updates X and P from slices of the stacked blocks; ``"pallas"`` names
-    the fused-Gram kernel K3 (``pcx_torch.kernels.gram9``), whatever the
-    device (the kernel on CUDA tensors, its plain version on CPU ones), with
-    the operands rounded to complex64 as the TPU kernel does, and updates
-    from the separate blocks with no concatenation
-    (pcx/solvers/lobpcg_rs.py:496-510).  Every block combination is
-    ``rr.combine`` (kernel K4 on the card) on the blocks where they lie.
+    Rayleigh-Ritz Gram [X|W|P]^H [HX|HW|HP] as one ``gram_f64`` of the six
+    blocks (kernel K6 on the card, which reads them where they lie) and
+    updates X over the X, W and P rows in one combination; ``"pallas"``
+    names the fused-Gram kernel K3 (``pcx_torch.kernels.gram9``), whatever
+    the device (the kernel on CUDA tensors, its plain version on CPU ones),
+    with the operands rounded to complex64 as the TPU kernel does, and adds
+    P' to X C_x last (pcx/solvers/lobpcg_rs.py:496-510).  Every block
+    combination is ``rr.combine`` (kernel K4 on the card) on the blocks
+    where they lie: neither route concatenates them.
 
     ``w_cap`` caps the width of the W and P blocks (lobpcg_rs.py:88-102,
     364-470): each iteration the ``wc`` columns of highest residual among
@@ -528,9 +530,7 @@ def lobpcg_sep_rs_lanes(
                 t = gram9(*(a.to(torch.complex64)
                            for a in (x, w, pf, hx, hw, hpf)))
             else:
-                sf = torch.cat((x, w, pf), dim=-2)
-                hsf = torch.cat((hx, hw, hpf), dim=-2)
-                t = rr.gram_f64(sf, hsf)
+                t = rr.gram_f64((x, w, pf), (hx, hw, hpf))
             theta_all, v = masked_rr(t, basis_mask, -1.0)
             c_all = v.to(cdtype) * basis_mask[..., :, None]
             # The dead columns sort first: the window of m Ritz pairs starts
@@ -543,20 +543,18 @@ def lobpcg_sep_rs_lanes(
             c = torch.gather(c_all, -1, idx[:, None, :].expand(-1, nb, -1))
             lambdas = torch.gather(theta_all.to(rdtype), -1, idx)
             # Each route keeps its order of summation: "xla" sums X' over
-            # the stacked X, W, P rows in one product (P' + X C_x rounds
+            # the X, W, P rows in one combination (P' + X C_x rounds
             # otherwise and took warm complex64 points at N=120 3-4% more
             # iterations to FLOOR), "pallas" adds P' to X C_x last.
+            cx, cw, cp = c[:, :m], c[:, m:m + wc], c[:, m + wc:]
+            p = rr.combine((w, pf), (cw, cp))
+            hp = rr.combine((hw, hpf), (cw, cp))
             if rr_gram == "pallas":
-                cx, cw, cp = c[:, :m], c[:, m:2 * m], c[:, 2 * m:]
-                p = rr.combine((w, pf), (cw, cp))
-                hp = rr.combine((hw, hpf), (cw, cp))
                 x = rr.combine((x,), (cx,), p)
                 hx = rr.combine((hx,), (cx,), hp)
             else:
-                p = rr.mix(c[:, m:], sf[:, m:])
-                hp = rr.mix(c[:, m:], hsf[:, m:])
-                x, hx = rr.mix(c, sf), rr.mix(c, hsf)
-                del sf, hsf
+                x = rr.combine((x, w, pf), (cx, cw, cp))
+                hx = rr.combine((hx, hw, hpf), (cx, cw, cp))
             del w, hw, pf, hpf
         it += 1
         retire({j: Status.RUNNING for j, lane in enumerate(run)

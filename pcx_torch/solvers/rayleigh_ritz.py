@@ -35,18 +35,11 @@ import torch
 from pcx_torch import tracing
 from pcx_torch.kernels.block_combine import (MAX_Q, MAX_ROWS, block_combine,
                                              block_combine_plain)
+from pcx_torch.kernels.gram_chunks import (MAX_SIDE as GRAM_MAX_SIDE,
+                                           gram_chunks, gram_chunks_plain)
 from pcx_torch.utils import all_reduce_sum, norms, real_dtype
 
 C128 = torch.complex128
-
-# Columns per partial of the Grams.  A single-precision GEMM accumulates
-# its k dimension in single precision, so a partial's rounding error grows
-# with sqrt(chunk).  On an H100 a (16, 3*120^3) complex64 Gram carried
-# 5.3e-6 relative error against complex128 at 65536 columns per partial
-# and 3.6e-6 as one GEMM, where the CPU's blocked GEMM keeps ~3e-7; that
-# error, times the penalty eigenvalues in the Rayleigh-Ritz matrix, set
-# the complex64 residual floor of the solvers on the card (PERF.md, F3).
-GRAM_CHUNK = 256
 
 
 def hermitize(a: torch.Tensor) -> torch.Tensor:
@@ -54,51 +47,54 @@ def hermitize(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + a.mH)
 
 
-def divisor_chunk(d: int, target: int) -> int:
-    """Largest Gram chunk <= target that divides d (so the chunked view needs
-    no padding); ``target`` when d has no divisor near it."""
-    lo = -(-d // target)
-    for nc in range(lo, min(d, 4 * lo) + 1):
-        if d % nc == 0:
-            return d // nc
-    return target
+def _blocks(x) -> tuple:
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
 
 
-def gram_f64(x: torch.Tensor, y: torch.Tensor, chunk: int = 0,
-             reduce_axis=None) -> torch.Tensor:
+def _gram(x, y, chunk: int, reduce_axis, rounded: bool) -> torch.Tensor:
+    """The Gram of ``gram_f64``, rounded to the blocks' dtype with
+    ``rounded``.  Routed by dtype, device and size alone: on the card a
+    complex64 call within kernel K6's row limits is one launch of K6, which
+    reads the blocks where they lie, or raises where K6 cannot read an
+    operand (counter ``dense.gram``); a complex64 call past those limits
+    is K6's plain version (``dense.gram_plain``), as is a call in another
+    dtype (complex128: the refine, ``f64_truth``) and every CPU call."""
+    xs, ys = _blocks(x), _blocks(y)
+    b0 = xs[0]
+    dtype = b0.dtype
+    if b0.is_cuda and dtype == torch.complex64:
+        if (sum(b.shape[-2] for b in xs) <= GRAM_MAX_SIDE
+                and sum(b.shape[-2] for b in ys) <= GRAM_MAX_SIDE):
+            # the kernel rounds, unless the sum is all-reduced first
+            in_kernel = rounded and reduce_axis is None
+            g = gram_chunks(xs, ys, chunk, c64=in_kernel)
+            tracing.count("dense.gram")
+            if in_kernel:
+                return g
+            g = all_reduce_sum(g, reduce_axis)
+            return g.to(dtype) if rounded else g
+        tracing.count("dense.gram_plain")
+    g = all_reduce_sum(gram_chunks_plain(xs, ys, chunk), reduce_axis)
+    return g.to(dtype) if rounded else g
+
+
+def gram_f64(x, y, chunk: int = 0, reduce_axis=None) -> torch.Tensor:
     """G[i, j] = <x_i, y_j> (complex128; float64 for real blocks) for
-    row-blocks x (..., p, D), y (..., q, D), as working-precision partials
-    over D-chunks summed in double: the error grows with sqrt(chunk), not
-    sqrt(D) (twin of ``rayleigh_ritz.gram_f64_p``).  ``chunk=0`` picks
+    row-blocks x (..., p, D), y (..., q, D), or for sequences of row-blocks
+    taken as stacked (the stack is not built on the card), as
+    working-precision partials over D-chunks summed in double: the error
+    grows with sqrt(chunk), not sqrt(D) (twin of
+    ``rayleigh_ritz.gram_f64_p``).  ``chunk=0`` picks
     ``divisor_chunk(D, GRAM_CHUNK)``; the double sum is all-reduced over
-    ``reduce_axis``.  Lanes (L, p, D) take one batched GEMM each: the
-    chunked view of a lane is a strided batch, that of all lanes is not,
-    and one GEMM over them would copy both operands."""
-    if x.dim() > 2:
-        return torch.stack([gram_f64(a, b, chunk, reduce_axis)
-                            for a, b in zip(x, y)])
-    p, d = x.shape
-    q = y.shape[0]
-    chunk = chunk or divisor_chunk(d, GRAM_CHUNK)
-    nc = -(-d // chunk)
-    pad = nc * chunk - d
-    if pad:
-        x = torch.nn.functional.pad(x, (0, pad))
-        y = torch.nn.functional.pad(y, (0, pad))
-    xc = x.view(p, nc, chunk).transpose(0, 1)
-    yc = y.view(q, nc, chunk).transpose(0, 1)
-    # conj(G_c) = X_c Y_c^H: the conjugate rides on the transposed operand.
-    part = torch.matmul(xc, yc.mH)
-    acc = C128 if part.is_complex() else torch.float64
-    g = all_reduce_sum(part.sum(dim=0, dtype=acc), reduce_axis)
-    return torch.conj_physical(g)
+    ``reduce_axis``.  Kernel K6 on the card (``_gram``)."""
+    return _gram(x, y, chunk, reduce_axis, False)
 
 
-def gram(x: torch.Tensor, y: torch.Tensor, reduce_axis=None) -> torch.Tensor:
+def gram(x, y, reduce_axis=None) -> torch.Tensor:
     """The Gram conj(X) Y^T (p, q) in the working precision, for
     projections (twin of ``rayleigh_ritz.gram_p32``): ``gram_f64``
     rounded, as one GEMM over all of D loses digits on the card."""
-    return gram_f64(x, y, reduce_axis=reduce_axis).to(x.dtype)
+    return _gram(x, y, 0, reduce_axis, True)
 
 
 def combine(blocks: Sequence[torch.Tensor], coeffs: Sequence[torch.Tensor],
@@ -186,6 +182,20 @@ def _absmax(a: torch.Tensor) -> torch.Tensor:
     return a.abs().amax(dim=(-2, -1))
 
 
+def _projection(against: Sequence[torch.Tensor], block: torch.Tensor,
+                reduce_axis=None) -> Sequence[torch.Tensor]:
+    """The coefficients of ``block`` on each base of ``against`` (the
+    Grams base^H block).  A complex64 block on the card takes one Gram of
+    the stacked bases (kernel K6 reads each base where it lies and the
+    block once), its rows split by base; elsewhere each base takes its own
+    Gram, as a BLAS may round a row of a stacked product otherwise
+    (complex128 blocks of 5 rows on the CPU)."""
+    if block.is_cuda and block.dtype == torch.complex64:
+        return torch.split(gram(against, block, reduce_axis),
+                           [b.shape[-2] for b in against], dim=-2)
+    return [gram(base, block, reduce_axis) for base in against]
+
+
 @tracing.spanned("pcx.svqb")
 def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
                      drop_tol: float, hblock: Optional[torch.Tensor] = None,
@@ -212,9 +222,7 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     hb = hblock
     for pno in range(passes):
         if against:
-            # one Gram per base (the rows of the Gram against the stacked
-            # bases): on the card no concatenation is built
-            coeffs = [gram(base, block, reduce_axis) for base in against]
+            coeffs = _projection(against, block, reduce_axis)
             block = combine(against, coeffs, block, subtract=True)
             if hb is not None and h_against:
                 hb = combine(h_against, coeffs, hb, subtract=True)

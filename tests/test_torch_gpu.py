@@ -8,7 +8,8 @@ refine against the complex128 refine, the two-grid lift ``resample3``
 against the CPU's, the complex route's two DFTs, and kernel K4 (the dense
 algebra's block combinations) and kernel K5 (the operator's block
 multiplies around K2) against their plain versions and complex128 and on
-the solvers' paths.
+the solvers' paths, and kernel K6 (the dense algebra's Grams) against
+complex128 and the cuBLAS route, and on the solvers' paths.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -629,9 +630,9 @@ def test_complex_impl_solve_batch_lanes_on_cuda_match_serial():
     res = kps.solve_batch(alphas, seed=4)
     n1 = kmod.launches()
     assert axis_dft.launches_by_batch.get(9 * m, 0) > b0.get(9 * m, 0)
-    # K2, K4 (the dense algebra) and K5 (the operator's block multiplies)
-    # serve the complex path; K1, K3 not
-    serve = ("axis_dft", "block_combine", "op_pre", "op_post")
+    # K2, K4 and K6 (the dense algebra) and K5 (the operator's block
+    # multiplies) serve the complex path; K1, K3 not
+    serve = ("axis_dft", "block_combine", "op_pre", "op_post", "gram_chunks")
     assert all(n1[k] == n0[k] for k in n0 if k not in serve)
     assert all(n1[k] > n0[k] for k in serve[1:])
     for i, (a, r) in enumerate(zip(alphas, res)):
@@ -936,3 +937,145 @@ def test_k5_route_raises_where_k5_cannot_read():
         op_pre(xt, d_a)
     torch.testing.assert_close(op_pre(x, d_a), op_pre_plain(x, d_a),
                                rtol=0.0, atol=0.0)
+
+
+# K6 at the main path's shapes, N=120 and m=16: left and right blocks of
+# the (48, D) stacks X|W|P and HX|HW|HP (the six-block Rayleigh-Ritz Gram,
+# the second SVQB's projection, a 16-row Gram)
+K6_CASES = {"16x16": ((0,), (3,)), "32x16": ((0, 1), (2,)),
+            "48x48": ((0, 1, 2), (3, 4, 5))}
+
+
+def _k6_blocks(dev, seed, lanes=None, d=3 * 120 ** 3, m=16):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lead = () if lanes is None else (lanes,)
+    stacks = [torch.randn(lead + (3 * m, d), generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(2)]
+    return [s[..., i * m:(i + 1) * m, :] for s in stacks for i in range(3)]
+
+
+def _rel(a, exact):
+    return float(torch.linalg.vector_norm(a.to(torch.complex128) - exact)
+                 / torch.linalg.vector_norm(exact))
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_error_vs_complex128(case):
+    """K6 against the complex128 Gram of the same blocks: relative error
+    no larger than 1.25 times the cuBLAS route's (its plain version: the
+    chunked ``torch.matmul`` partials summed in complex128) and at most
+    5e-7 (F3); two launches give the same bits."""
+    from pcx_torch.kernels.gram_chunks import gram_chunks_plain
+    from pcx_torch.kernels import gram_chunks
+    dev = _cuda()
+    blocks = _k6_blocks(dev, 30)
+    left, right = ([blocks[i] for i in idx] for idx in K6_CASES[case])
+    exact = gram_chunks_plain([b.to(torch.complex128) for b in left],
+                              [b.to(torch.complex128) for b in right])
+    n0 = gram_chunks.launches
+    got = gram_chunks(left, right)
+    again = gram_chunks(left, right)
+    err_k, err_lib = _rel(got, exact), _rel(gram_chunks_plain(left, right),
+                                            exact)
+    assert gram_chunks.launches == n0 + 2
+    assert torch.equal(got, again)
+    assert err_k <= 1.25 * err_lib and err_k <= 5e-7, (err_k, err_lib)
+    del blocks, exact
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("d,off,chunk", [
+    (3 * 75 ** 3, 0, 0),         # odd D: 8-byte copies, odd chunk
+    (3 * 120 ** 3 + 2, 0, 0),    # no divisor near 256: a ragged last chunk
+    (3 * 16 ** 3, 1, 0),         # blocks one element off 16-byte alignment
+    (5000, 0, 2048),             # K3's chunk: 64 stages a chunk
+    (6, 0, 0)])                  # less than one stage
+def test_k6_tails_and_load_paths(d, off, chunk):
+    """Shapes off the main path: each against complex128 within 2x the
+    cuBLAS route's error (and 1e-6), a self-Gram and its c64 rounding."""
+    from pcx_torch.kernels.gram_chunks import gram_chunks_plain
+    from pcx_torch.kernels import gram_chunks
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d)
+    stack = torch.randn((34, d + off), generator=gen, device=dev,
+                        dtype=torch.complex64)[:, off:]
+    a, b = stack[:16], stack[16:30]
+    for left, right in (((a,), (b,)), ((a,), (a,)), ((a[:5], b[:9]), (a,))):
+        exact = gram_chunks_plain([t.to(torch.complex128) for t in left],
+                                  [t.to(torch.complex128) for t in right],
+                                  chunk)
+        got = gram_chunks(left, right, chunk)
+        err_lib = _rel(gram_chunks_plain(left, right, chunk), exact)
+        assert _rel(got, exact) <= max(2.0 * err_lib, 1e-6)
+        assert torch.equal(gram_chunks(left, right, chunk, c64=True),
+                           got.to(torch.complex64))
+
+
+def test_k6_lanes_equal_the_one_lane_launches():
+    """Four lanes in one launch: each lane's Gram equals that lane's own
+    launch bit for bit, and the launch counts one per lane served."""
+    from pcx_torch.kernels import gram_chunks
+    dev = _cuda()
+    blocks = _k6_blocks(dev, 31, lanes=4, d=3 * 64 ** 3)
+    left, right = blocks[:3], blocks[3:]
+    n0 = gram_chunks.launches
+    got = gram_chunks(left, right)
+    assert gram_chunks.launches == n0 + 4
+    for i in range(4):
+        assert torch.equal(got[i], gram_chunks([b[i] for b in left],
+                                               [b[i] for b in right]))
+
+
+def test_k6_xla_update_equals_the_stacked_mix():
+    """The rs loop's ``"xla"`` update as three-block combinations over the
+    separate X, W, P blocks (K4 sums the rows of all blocks in row order)
+    equals ``rr.mix`` over the stacked [X|W|P] under ``torch.equal``, for
+    X' and for P' (the W and P rows)."""
+    dev = _cuda()
+    x, w, pf = _k6_blocks(dev, 32)[:3]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    c = torch.randn((48, 16), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    sf = torch.cat((x, w, pf))
+    cx, cw, cp = c[:16], c[16:32], c[32:]
+    assert torch.equal(rr.combine((x, w, pf), (cx, cw, cp)), rr.mix(c, sf))
+    assert torch.equal(rr.combine((w, pf), (cw, cp)),
+                       rr.mix(c[16:], sf[16:]))
+
+
+@pytest.mark.parametrize("how", ["rs", "complex", "lanes"])
+def test_k6_takes_every_gram_of_a_complex64_solve(how, monkeypatch):
+    """A warm complex64 fcc point with the light refine on the card (the
+    rs solver, the complex family, three lanes of a k-point batch): every
+    Gram the solver forms launches K6 (``dense.gram`` equals the Grams
+    formed, ``dense.gram_plain`` 0) and ``gram.bytes`` counts them."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    from pcx_torch.lattices import k_path
+    dev = _cuda()
+    kps = KPointSolver(ProblemConfig(n=24, lattice="fcc", nev=6),
+                       device=dev, dtype=torch.complex64, refine="light",
+                       solver_impl="complex" if how == "complex" else "rs")
+    alphas = [k_path("fcc")[i] for i in (9, 10, 11)]
+    start = kps.solve(alphas[0]).x
+    formed = [0]
+    gram = rr._gram
+
+    def counted(*args):
+        formed[0] += 1
+        return gram(*args)
+
+    monkeypatch.setattr(rr, "_gram", counted)
+    kmod.reset_launches()
+    if how == "lanes":
+        res = kps.solve_batch(alphas, x0s=[start] * 3)
+    else:
+        res = [kps.solve(alphas[1], x0=start)]
+    counts = tracing.counts()
+    assert all(r.status in (1, 5) for r in res)
+    assert counts.get("dense.gram_plain", 0) == 0
+    assert counts["dense.gram"] == formed[0] > 0
+    assert counts["gram.bytes"] > 0
