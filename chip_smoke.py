@@ -1770,6 +1770,7 @@ def phase_experiments(dev, warm_ms: float, n: int = N, pack_ns=PACK_NS,
     ``warm_ms`` is phase 8's cold ms per iteration, the measurement beside
     which ``phase_breakdown``'s measured iteration is printed."""
     from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
     from pcx_torch.experiments import precision, runtime, structure
     from pcx_torch.lattices import k_path
     from pcx_torch.profiling import phase_breakdown
@@ -1778,7 +1779,7 @@ def phase_experiments(dev, warm_ms: float, n: int = N, pack_ns=PACK_NS,
     alpha = k_path("sc_curv")[R_INDEX]
     print(f"phase experiments: pack_cmp({pack_ns}, 'sc_curv', run_cpu=False)"
           f" at alpha=(pi,pi,pi), complex64", flush=True)
-    last = [kmod.launches()]
+    last = [kmod.launches(), tracing.counts().get("k2.sm_blocks", 0)]
     problems = []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1799,7 +1800,15 @@ def phase_experiments(dev, warm_ms: float, n: int = N, pack_ns=PACK_NS,
         if dev.type == "cuda" and not (counts["resid_precond"]
                                        and counts["axis_dft"]):
             problems.append(f"N={n_pt}: K1 or K2 never launched: {counts}")
-        last[0] = kmod.launches()
+        blocks = tracing.counts().get("k2.sm_blocks", 0)
+        if dev.type == "cuda" and counts["axis_dft"]:
+            # K2's resident blocks per SM: two by shared memory at N=100-144,
+            # one at N=150 (116.9 KB a block)
+            per_sm = (blocks - last[1]) / counts["axis_dft"]
+            print(f"  N={n_pt}: K2 blocks per SM {per_sm}", flush=True)
+            if per_sm != (1 if n_pt == 150 else 2):
+                problems.append(f"N={n_pt}: K2 blocks per SM {per_sm}")
+        last[:] = [kmod.launches(), blocks]
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
 

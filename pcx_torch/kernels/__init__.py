@@ -24,8 +24,10 @@ K1's, K3's and K6's counts are lane-launches: one per lane served, so a
 launch over L lanes adds L (a reader reckons one lane's bytes per count);
 K2's, K4's and K5's count launches.  K2 also counts them by its batch B
 (``axis_dft.launches_by_batch``, 3 m in an operator apply on m columns,
-3 L m over L lanes); K4, K5 and K6 add the bytes of each launch to the
-program counters ``k4.bytes``, ``k5.bytes`` and ``gram.bytes``.
+3 L m over L lanes) and adds each launch's resident blocks per SM to the
+program counter ``k2.sm_blocks``; K4, K5 and K6 add the bytes of each
+launch to the program counters ``k4.bytes``, ``k5.bytes`` and
+``gram.bytes``.
 ``reset_launches`` also resets the program's other counters and span
 totals (``pcx_torch.tracing``).
 """

@@ -40,7 +40,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "pcx_resid_precond": ([_P] * 8 + [_I, _I, _LL, _P], _I),
     "pcx_resid_precond_blocks": ([_LL], _I),
-    "pcx_axis_dft": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "pcx_axis_dft": ([_P] * 5 + [_I] * 6 + [_P, ctypes.POINTER(_I)], _I),
     "pcx_axis_dft_encode_us": ([_P] + [_I] * 5, ctypes.c_double),
     "pcx_gram9": ([_P] * 8 + [_I, _I, _LL, _I, _P], _I),
     "pcx_gram9_chunks": ([_LL, _I], _LL),

@@ -12,17 +12,22 @@ that is not the DFT reaches it.
 The plan (``fft_plan``) is built on the host once per (N, direction): the
 factor pair N = N1 * N2 and the three f32 twiddle tables, computed in float64.
 ``axis_dft`` takes the plain PyTorch version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises.  Each launch adds the blocks
+resident per SM that the launch computed (two at N=100 to 144, one at
+N=150, by shared memory) to the program counter ``k2.sm_blocks``; the plain
+version counts nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from pcx_torch import tracing
 from pcx_torch.kernels import _build
 
 MAX_RADIX = 16   # the kernel's register DFTs have length 1..16
@@ -145,12 +150,15 @@ def axis_dft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pcx_axis_dft(x.data_ptr(), y.data_ptr(), w1.data_ptr(),
                               tw.data_ptr(), w2.data_ptr(), b, a, j, k,
-                              plan.n1, plan.n2, stream)
+                              plan.n1, plan.n2, stream,
+                              ctypes.byref(_PER_SM))
     _build.check(rc, "axis_dft")
     axis_dft.launches += 1
     axis_dft.launches_by_batch[b] = axis_dft.launches_by_batch.get(b, 0) + 1
+    tracing.count("k2.sm_blocks", _PER_SM.value)
     return y
 
 
 axis_dft.launches = 0
 axis_dft.launches_by_batch = {}   # batch B -> launches
+_PER_SM = ctypes.c_int(0)   # the launch's blocks per SM, the C entry writes

@@ -460,8 +460,11 @@ bool tma_ok(const Params& p) {
          (p.K * 8) % 16 == 0 && (p.kt * 8) % 16 == 0;
 }
 
+// Writes the blocks resident per SM, as the occupancy query gave them, to
+// `per_sm_out`.
 template <bool kTma>
-int launch(const CUtensorMap& map, const Params& p, cudaStream_t stream) {
+int launch(const CUtensorMap& map, const Params& p, cudaStream_t stream,
+           int* per_sm_out) {
   auto kernel = axis_dft_kernel<kTma>;
   const int smem = smem_bytes(p);
   cudaError_t e = cudaFuncSetAttribute(
@@ -475,6 +478,7 @@ int launch(const CUtensorMap& map, const Params& p, cudaStream_t stream) {
                                                       kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *per_sm_out = per_sm;
   const long long fit = (long long)per_sm * sms;
   const long long grid = p.tiles < fit ? p.tiles : fit;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(map, p);
@@ -487,10 +491,12 @@ int launch(const CUtensorMap& map, const Params& p, cudaStream_t stream) {
 // w1 (n1), tw (n2, n1), w2 (n2): the plan's f32 tables (axis_dft.py).
 // n1 * n2 == A with n1, n2 <= 16, or n1 == A, n2 == 1 for the dense stage;
 // A <= 256.  Launches on `stream`; returns the cudaError_t of the set-up and
-// the launch (0 on success).
+// the launch (0 on success), and writes the launch's resident blocks per SM
+// to `per_sm`.
 extern "C" int pcx_axis_dft(const void* x, void* y, const void* w1,
                             const void* tw, const void* w2, int B, int A,
-                            int J, int K, int n1, int n2, void* stream) {
+                            int J, int K, int n1, int n2, void* stream,
+                            int* per_sm) {
   if (B <= 0 || A <= 0 || J <= 0 || K <= 0 || A > kMaxA || n1 <= 0 ||
       n2 <= 0 || n1 * n2 != A || (n1 > kMaxRadix && n2 != 1) ||
       n2 > kMaxRadix)
@@ -504,9 +510,9 @@ extern "C" int pcx_axis_dft(const void* x, void* y, const void* w1,
   if (tma_ok(p)) {
     const int e = encode(&map, p, B);
     if (e) return e;
-    return launch<true>(map, p, st);
+    return launch<true>(map, p, st, per_sm);
   }
-  return launch<false>(map, p, st);
+  return launch<false>(map, p, st, per_sm);
 }
 
 // Host cost of the per-launch tensor-map encode: mean microseconds of `reps`
