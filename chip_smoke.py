@@ -54,7 +54,12 @@ failure ends the run with a non-zero exit:
              5e-7), two launches bit for bit, timed beside its bound (bytes,
              or operations at the f32 peak for 48 x 48), its plain version
              (with its concatenations) and the cuBLAS route on operands
-             stacked beforehand (``library_ms``).
+             stacked beforehand (``library_ms``); then K7 crossdof_apply
+             (the cross-DoF eps^-1 in one pass) at N=120, m=16 with the
+             cells' preset 0 (pair 12 alone, 2 taps), bit for bit against
+             the eager composition it replaces, timed beside its bytes
+             bound (0.4065 ms) and that composition (``library_ms``),
+             with its resident blocks per SM.
 6. operator — complex64 ama_bb through the kernels vs complex128 torch.fft
              on a 2-column block at N=120.
 7. single  — cold sc_curv chiral N=120 nev=10 solve at alpha=(pi,0,0), the
@@ -267,7 +272,9 @@ that all the serial kernels launched); after both, the counter
 take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0, and
 ``dense.gram_plain`` (complex64 Grams past K6's limits, which take the
 cuBLAS route) 0 and ``dense.gram`` K6's launches, more than 0; K5
-(``op_pre``, ``op_post``) must launch wherever K4 must; and once
+(``op_pre``, ``op_post``) must launch wherever K4 must; K7
+(``crossdof_apply``) must launch in phase 11's cross-DoF sweep, once for
+each complex64 operator apply (as often as K5's pre pass); and once
 more before phase 11: read after its sweep (K1, K2, K3) and after its
 single solves (K1, K2), and around each solve of phase 13, around phase
 14, around each solve of phase 16, around phase 17 (K1 and K2 must
@@ -1050,6 +1057,46 @@ def phase_k6(gen, dev, peak: float, m: int = 16) -> dict:
     return {"name": "gram_chunks", "route": "cuda", "arith": FP32_FMA,
             "source": "pcx_torch/kernels/csrc/gram_chunks.cu",
             "replaces": None, **rr_rec, "calls": out}
+
+
+def phase_k7(gen, dev, m: int = 16, n: int = N) -> dict:
+    """K7 crossdof_apply at the cells' shapes, N=120 and m=16, with the
+    cross-DoF cells' preset 0 (pair 12 alone) and 2 taps: bit for bit
+    against the eager composition it replaces (``torch.equal``), timed
+    beside its bytes bound and that composition (``library_ms``: the eager
+    PyTorch calls the dielectric made before K7)."""
+    from pcx_torch.kernels import _build
+    from pcx_torch.kernels.crossdof import (bytes_moved, crossdof_apply,
+                                            crossdof_plain, _terms)
+    from pcx_torch.operators.dielectric import build
+    op = build(CROSSDOF, n, "sc_curv", dev)
+    x = torch.randn((m, 3, n, n, n), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    args = (x, op.diag32, op.masks32, op.sten, op.eps)
+    got, want = crossdof_apply(*args), crossdof_plain(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    del got, want
+    ms = cuda_ms(lambda: crossdof_apply(*args))
+    lib_ms = cuda_ms(lambda: crossdof_plain(*args))
+    nbytes = bytes_moved(x, _terms(op.sten, op.eps)[0])
+    b_ms = 1e3 * nbytes / HBM_BYTES_S
+    blocks = _build.load().pcx_crossdof_blocks(len(op.sten) // 2,
+                                                _terms(op.sten, op.eps)[0])
+    print(f"phase k7: {m} columns at N={n}, preset 0, {len(op.sten)} taps: "
+          f"equal to the eager composition {same}; kernel {ms:.4f} ms, "
+          f"eager composition {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({nbytes} bytes) = {100 * b_ms / ms:.1f}% reached; "
+          f"{blocks} blocks of 256 threads an SM", flush=True)
+    if not same:
+        fail("K7 differs from the eager composition")
+    del x, args, op
+    torch.cuda.empty_cache()
+    return {"name": "crossdof_apply", "route": "cuda", "arith": FP32_FMA,
+            "source": "pcx_torch/kernels/csrc/crossdof.cu",
+            "replaces": None, "ms": ms, "plain_ms": lib_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "share": b_ms / ms, "blocks_per_sm": blocks}
 
 
 def phase_operator(gen, dev, n: int = N, diel_type: str = "chiral"):
@@ -3125,6 +3172,7 @@ def main() -> None:
     kernels.append(phase_k4(gen, dev, peak))
     kernels.append(phase_k5(gen, dev))
     kernels.append(phase_k6(gen, dev, peak))
+    k7 = phase_k7(gen, dev)
     phase_operator(gen, dev)
     from pcx_torch import kernels as kmod
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3173,6 +3221,11 @@ def main() -> None:
         rec["launches_pseudo_sweep"] = counts[rec["name"]]
     if not all(rec["launches_pseudo_sweep"] > 0 for rec in kernels):
         fail(f"a kernel never launched in the pseudochiral sweep: {counts}")
+    # every complex64 apply on the card launches K5's pre pass once
+    k7["launches_pseudo_sweep"] = counts["crossdof_apply"]
+    if not counts["crossdof_apply"] == counts["op_pre"] > 0:
+        fail(f"K7 did not take every complex64 cross-DoF apply of the "
+             f"sweep: {counts}")
     kmod.reset_launches()
     phase_variants(dev)
     counts = kmod.launches()
@@ -3251,7 +3304,8 @@ def main() -> None:
     for rec in kernels + lane_kernels:
         rec["launches_complex_lanes"] = counts[rec["name"]]
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels + lane_kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + lane_kernels + [k7]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -47,6 +47,8 @@ SIGNATURES = {
     "pcx_block_combine": ([_P, _P, _P], _I),
     "pcx_op_blocks": ([_P, _P, ctypes.c_float, _P], _I),
     "pcx_gram_chunks": ([_P, _P, _P], _I),
+    "pcx_crossdof": ([_P, _P, _P, _P], _I),
+    "pcx_crossdof_blocks": ([_I, _I], _I),
 }
 
 

@@ -14,7 +14,9 @@ stencil operations on tensors, with no sparse storage:
 * pseudochiral crossdof: the same diagonal, the off-diagonal coupling
                          through separable 2k-wide averaging stencils
                          restricted by the per-component edge masks
-                         (``torch.roll``), in place of sparse_kron + SpMV.
+                         (``torch.roll``), in place of sparse_kron + SpMV;
+                         a complex64 apply on the card is one launch of
+                         kernel K7 (``kernels/crossdof.py``), the same bits.
 
 Every operator is an ``nn.Module`` whose arrays are buffers on an explicit
 device, held twice: in float64 / complex128 for the complex128 refine and
@@ -37,6 +39,7 @@ from pcx_torch import geometry, stencils
 from pcx_torch.config import (CHIRAL_EPS_EG, PSEUDOCHIRAL_EPS_LOC,
                               TYPE_CHIRAL, TYPE_PSEUDO_CROSSDOF,
                               TYPE_PSEUDO_TRIVIAL)
+from pcx_torch.kernels import crossdof as k7
 from pcx_torch.operators.blocks import h_block
 from pcx_torch.operators.symbols import HermSymbol
 
@@ -209,7 +212,12 @@ def make_crossdof_apply(sten, eps3, eps4, eps5, roll_fn=None):
 class CrossDofOp(DielectricOp):
     """Hermitian tensor eps^{-1} with the 2k-wide cross-DoF averaging
     coupling, from its real (3, N, N, N) diagonal, the (3, N, N, N) 0/1 edge
-    masks, the averaging stencil and the three off-diagonal eps entries."""
+    masks, the averaging stencil and the three off-diagonal eps entries.
+
+    A complex64 field on the card goes to kernel K7 (``crossdof_apply``),
+    which launches or raises, and equals the eager composition bit for bit;
+    complex128, the CPU and an operator built with a ``roll_fn`` take the
+    eager composition."""
 
     name = TYPE_PSEUDO_CROSSDOF
 
@@ -219,12 +227,15 @@ class CrossDofOp(DielectricOp):
         self.eps = tuple(complex(e) for e in eps)
         self._hold("diag", diag, device)
         self._hold("masks", masks, device)
+        self._k7 = roll_fn is None
         self._apply_fn = make_crossdof_apply(self.sten, *self.eps,
                                              roll_fn=roll_fn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply_fn((self._held("diag", x), self._held("masks", x)),
-                              x)
+        diag, masks = self._held("diag", x), self._held("masks", x)
+        if self._k7 and x.is_cuda and x.dtype == torch.complex64:
+            return k7.crossdof_apply(x, diag, masks, self.sten, self.eps)
+        return self._apply_fn((diag, masks), x)
 
     def diag(self) -> torch.Tensor:
         return self.diag64

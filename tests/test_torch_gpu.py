@@ -1126,3 +1126,92 @@ def test_n150_cold_solve_at_r_is_judged_correct():
     torch.cuda.empty_cache()
     for key, value in got._asdict().items():
         assert value <= limits[key], (key, value, limits[key])
+
+
+# K7 against the eager composition it replaces: the four presets (pair 12
+# alone, 13 alone, all three twice), 2 and 4 taps, the cells' grids and an
+# odd small one, a block and the lanes of a k-point batch
+K7_NS = [120, 150, 17]
+
+
+@pytest.mark.parametrize("lead", [(16,), (4, 16)], ids=["block", "lanes"])
+@pytest.mark.parametrize("n", K7_NS)
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("preset", [0, 1, 2, 3])
+def test_k7_matches_the_eager_composition_bit_for_bit(preset, k, n, lead):
+    """``CrossDofOp`` on a complex64 field on the card launches K7 once,
+    and its result equals the eager composition under ``torch.equal``."""
+    from pcx_torch.kernels.crossdof import crossdof_apply, crossdof_plain
+    dev = _cuda()
+    op = dielectric.pseudochiral_crossdof_op(n, "sc_curv", dev,
+                                             eps_opt=preset, k=k)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 * preset + 10 * k + n)
+    x = torch.randn(lead + (3, n, n, n), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    n0 = crossdof_apply.launches
+    got = op(x)
+    want = crossdof_plain(x, op.diag32, op.masks32, op.sten, op.eps)
+    torch.cuda.synchronize()
+    assert crossdof_apply.launches == n0 + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    del x, got, want, op
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("how", ["rs", "lanes"])
+def test_k7_takes_every_apply_of_a_complex64_crossdof_solve(how):
+    """A complex64 cross-DoF solve with the light refine on the card (one
+    point, and three lanes of a k-point batch): every operator apply
+    launches K7 once (as often as K5's pre pass) and ``k7.bytes`` counts
+    (48 c + 4 (3 + 2)) N^3 over the columns applied."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    from pcx_torch.config import TYPE_PSEUDO_CROSSDOF
+    from pcx_torch.kernels.crossdof import crossdof_apply
+    from pcx_torch.kernels.op_blocks import op_pre
+    from pcx_torch.lattices import k_path
+    dev = _cuda()
+    n = 24
+    kps = KPointSolver(ProblemConfig(n=n, lattice="sc_curv", nev=6,
+                                     diel_type=TYPE_PSEUDO_CROSSDOF),
+                       device=dev, dtype=torch.complex64, refine="light")
+    kmod.reset_launches()
+    if how == "lanes":
+        res = kps.solve_batch([k_path("sc_curv")[i] for i in (24, 25, 26)])
+    else:
+        res = [kps.solve(np.array([np.pi, 0.0, 0.0]))]
+    counts = tracing.counts()
+    assert all(r.status in (1, 5) for r in res)
+    assert crossdof_apply.launches == op_pre.launches == counts["op.applies"]
+    assert crossdof_apply.launches > 0
+    assert counts["k7.bytes"] == (48 * counts["op.columns"]
+                                  + 20 * counts["op.applies"]) * n ** 3
+
+
+def test_k7_route_raises_where_k7_cannot_read_and_leaves_complex128():
+    """On the card a complex64 field always goes to K7, which raises on a
+    field it cannot read (not contiguous); a complex128 field and an
+    operator built with a ``roll_fn`` take the eager composition and
+    launch nothing."""
+    from pcx_torch.kernels.crossdof import crossdof_apply, crossdof_plain
+    dev = _cuda()
+    op = dielectric.pseudochiral_crossdof_op(16, "sc_curv", dev, eps_opt=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((4, 3, 16, 16, 16), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    n0 = crossdof_apply.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        op(x.transpose(-1, -2))
+    w = torch.complex128
+    want = op._apply_fn((op.diag64, op.masks64), x.to(w))
+    assert torch.equal(op(x.to(w)), want)
+    sharded = dielectric.CrossDofOp(op.diag64, op.masks64, op.sten, op.eps,
+                                    dev, roll_fn=torch.roll)
+    assert torch.equal(sharded(x), crossdof_plain(x, op.diag32, op.masks32,
+                                                  op.sten, op.eps))
+    assert crossdof_apply.launches == n0
+    assert torch.equal(op(x), sharded(x))
+    assert crossdof_apply.launches == n0 + 1
