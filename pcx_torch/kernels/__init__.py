@@ -28,9 +28,10 @@ launch over L lanes adds L (a reader reckons one lane's bytes per count);
 K2's, K4's, K5's and K7's count launches.  K2 also counts them by its batch B
 (``axis_dft.launches_by_batch``, 3 m in an operator apply on m columns,
 3 L m over L lanes) and adds each launch's resident blocks per SM to the
-program counter ``k2.sm_blocks``; K4, K5, K6 and K7 add the bytes of each
-launch to the program counters ``k4.bytes``, ``k5.bytes``,
-``gram.bytes`` and ``k7.bytes``.
+program counter ``k2.sm_blocks``; K3, K4, K5, K6 and K7 add the bytes of
+each launch to the program counters ``k3.bytes``, ``k4.bytes``,
+``k5.bytes``, ``gram.bytes`` and ``k7.bytes`` (K7's launches with the
+pairs 13 or 23 to ``k7.iaxis_bytes`` too).
 ``reset_launches`` also resets the program's other counters and span
 totals (``pcx_torch.tracing``).
 """

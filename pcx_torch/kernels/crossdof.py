@@ -23,7 +23,9 @@ eps entries, a zero entry skipping its pair.  ``problem`` says why operands
 lie outside that (None where the kernel takes them).  The wrapper takes the
 plain version for CPU tensors only; for CUDA tensors it launches the kernel
 or raises.  Each launch adds the bytes it must read and write to the
-program counter ``k7.bytes``.
+program counter ``k7.bytes``, and a launch whose nonzero pairs include 13
+or 23 (``IAXIS``: a transposed average along i, the grid's fastest axis)
+adds the same bytes to ``k7.iaxis_bytes``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from pcx_torch.kernels.op_blocks import _refusal
 
 MAX_K = 3                  # taps 2k <= 6 (the C entry's kMaxK)
 MAX_N = 1290               # N^2 offsets in 32 bits (the C entry's limit)
+IAXIS = 0b110              # the pairs 13 and 23 as ``_terms``' bits
 
 
 def crossdof_plain(x: torch.Tensor, diag: torch.Tensor, masks: torch.Tensor,
@@ -126,7 +129,10 @@ def crossdof_apply(x: torch.Tensor, diag: torch.Tensor, masks: torch.Tensor,
         rc = lib.pcx_crossdof(pa.buffer_info()[0], ma.buffer_info()[0],
                               params.buffer_info()[0], stream)
     _build.check(rc, "crossdof_apply")
-    tracing.count("k7.bytes", bytes_moved(x, active))
+    nbytes = bytes_moved(x, active)
+    tracing.count("k7.bytes", nbytes)
+    if active & IAXIS:
+        tracing.count("k7.iaxis_bytes", nbytes)
     crossdof_apply.launches += 1
     return out
 

@@ -17,13 +17,15 @@ two kernels; JAX runs the TPU kernel's batch under ``jax.vmap``.
 ``gram9.launches`` counts one per lane served.
 
 It takes the plain PyTorch version for CPU tensors only; for CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises.  Each launch adds the bytes it must move
+(``bytes_moved``) to the program counter ``k3.bytes``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pcx_torch import tracing
 from pcx_torch.kernels import _build
 from pcx_torch.kernels.gram_chunks import gram_chunks_plain
 
@@ -43,6 +45,15 @@ def _check(blocks):
         if t.device != x.device:
             raise ValueError(f"gram9: {bname} is on {t.device}, x on "
                              f"{x.device}")
+
+
+def bytes_moved(lanes: int, m: int, d: int, chunks: int) -> int:
+    """The bytes a launch must move (``csrc/gram9.cu``'s header): the six
+    (m, D) complex64 blocks read once, and the complex64 partials, one
+    (3m, 3m) a chunk of D, written and read once:
+    8 L (6 m D + 2 chunks (3m)^2).  At m=16, D=3*120^3 and 2048-column
+    chunks (2532): 3.98 GB of blocks and 0.09 GB of partials."""
+    return 8 * lanes * (6 * m * d + 2 * chunks * (3 * m) ** 2)
 
 
 def gram9_plain(x, w, p, hx, hw, hp, chunk: int = 2048) -> torch.Tensor:
@@ -72,8 +83,9 @@ def gram9(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
     lead = x.shape[:-2]
     lanes = x.shape[0] if x.dim() == 3 else 1
     m, d = x.shape[-2:]
-    partial = torch.empty((lanes, lib.pcx_gram9_chunks(d, chunk), 3 * m,
-                           3 * m), dtype=torch.complex64, device=x.device)
+    chunks = lib.pcx_gram9_chunks(d, chunk)
+    partial = torch.empty((lanes, chunks, 3 * m, 3 * m),
+                          dtype=torch.complex64, device=x.device)
     out = torch.empty(lead + (3 * m, 3 * m), dtype=torch.complex128,
                       device=x.device)
     with torch.cuda.device(x.device):
@@ -82,6 +94,7 @@ def gram9(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
                            partial.data_ptr(), out.data_ptr(), lanes, m, d,
                            chunk, stream)
     _build.check(rc, "gram9")
+    tracing.count("k3.bytes", bytes_moved(lanes, m, d, chunks))
     gram9.launches += lanes
     return out
 

@@ -9,7 +9,9 @@ against the CPU's, the complex route's two DFTs, and kernel K4 (the dense
 algebra's block combinations) and kernel K5 (the operator's block
 multiplies around K2) against their plain versions and complex128 and on
 the solvers' paths, and kernel K6 (the dense algebra's Grams) against
-complex128 and the cuBLAS route, and on the solvers' paths.
+complex128 and the cuBLAS route, and on the solvers' paths; K7's and K3's
+byte counters, and an fcc preset-1 cross-DoF solve at N=120 judged by the
+benchmark's plain reference.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -1215,3 +1217,89 @@ def test_k7_route_raises_where_k7_cannot_read_and_leaves_complex128():
     assert crossdof_apply.launches == n0
     assert torch.equal(op(x), sharded(x))
     assert crossdof_apply.launches == n0 + 1
+
+
+@pytest.mark.parametrize("preset", [1, 0])
+def test_k7_counts_the_bytes_of_its_i_axis_instances(preset):
+    """On fcc's masks at N=120, a preset-1 apply (pair 13 alone, the
+    transposed average along i) adds to ``k7.iaxis_bytes`` what it adds to
+    ``k7.bytes``; a preset-0 apply (pair 12 alone) adds nothing to it."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    from pcx_torch.kernels.crossdof import bytes_moved
+    dev = _cuda()
+    op = dielectric.pseudochiral_crossdof_op(120, "fcc", dev, eps_opt=preset)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25 + preset)
+    x = torch.randn((16, 3, 120, 120, 120), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    kmod.reset_launches()
+    op(x)
+    torch.cuda.synchronize()
+    counts = tracing.counts()
+    nbytes = bytes_moved(x, 0b010 if preset else 0b001)
+    assert nbytes == 1_361_664_000
+    assert counts["k7.bytes"] == nbytes
+    assert counts.get("k7.iaxis_bytes", 0) == (nbytes if preset else 0)
+    del x, op
+    torch.cuda.empty_cache()
+
+
+def test_k3_counts_its_blocks_and_partials():
+    """A K3 launch at m=16, N=120 adds 8 (6 m D + 2 chunks (3m)^2) bytes to
+    ``k3.bytes``: the six blocks once, the 2532 chunk partials written and
+    read once."""
+    from pcx_torch import kernels as kmod
+    from pcx_torch import tracing
+    from pcx_torch.kernels.gram9 import bytes_moved
+    dev = _cuda()
+    m, d = 16, 3 * 120 ** 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    blocks = [torch.randn((m, d), generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(6)]
+    kmod.reset_launches()
+    gram9(*blocks)
+    torch.cuda.synchronize()
+    assert kmod.launches()["gram9"] == 1
+    assert tracing.counts()["k3.bytes"] == bytes_moved(1, m, d, 2532) == \
+        4_074_651_648
+    del blocks
+    torch.cuda.empty_cache()
+
+
+def test_fcc_preset_1_solve_at_point_10_is_judged_correct():
+    """fcc in the preset-1 Hermitian eps^{-1} (pair 13 alone) at N=120, a
+    cold complex64 solve at path point 10 with the light refine, every
+    apply through K7's pair-13 instance: the plain complex128 reference
+    judges its block within the limits of the cell
+    ``fcc_crossdof1_n120.sweep``."""
+    from benchmark import lattices
+    from benchmark.reference import maxwell as ref
+    from pcx_torch.kernels.crossdof import crossdof_apply
+    dev = _cuda()
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "fcc_crossdof1_n120.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, "benchmark", "limits",
+                           "fcc_crossdof1_n120.sweep.json")) as f:
+        limits = {**cfg["guarantees"], **json.load(f)}
+    alpha = lattices.k_path("fcc", cfg["gap"])[10]
+    kps = KPointSolver(ProblemConfig(n=120, lattice="fcc", nev=cfg["nev"],
+                                     diel_type=cfg["diel_type"],
+                                     eps_opt=cfg["eps_opt"]),
+                       device=dev, dtype=torch.complex64, tol=cfg["tol"],
+                       maxiter=cfg["maxiter"], refine=cfg["refine"])
+    n0 = crossdof_apply.launches
+    res = kps.solve(alpha, seed=10)
+    assert res.status in (1, 5) and res.x.shape[0] == 16
+    assert crossdof_apply.launches > n0
+    x, omega, omega_re = res.x, res.omega, res.omega_re
+    del kps, res
+    torch.cuda.empty_cache()
+    op = ref.Operator(cfg, ref.Dielectric(cfg, dev), alpha, dev)
+    got = ref.judge(cfg, op, x, omega, omega_re)
+    del op, x
+    torch.cuda.empty_cache()
+    for key, value in got._asdict().items():
+        assert value <= limits[key], (key, value, limits[key])
