@@ -43,7 +43,11 @@ failure ends the run with a non-zero exit:
              against its plain version and complex128 (no worse than 1.5x
              the error of one cuBLAS GEMM over the concatenated blocks),
              timed beside its bound, the plain version, one cuBLAS call and
-             the same with the concatenation; then K5 op_blocks at N=120,
+             the same with the concatenation, and the two SVQB projections
+             with a row-scaled addend (the rs loop's W and P scalings)
+             bit for bit against the launch on the materialised scaled
+             addend, timed beside the unscaled call (the same bytes:
+             within 3%); then K5 op_blocks at N=120,
              m=16 (pre, post, post with the penalty and a shift), each bit
              for bit against the eager composition it replaces, its error
              against complex128, timed beside its bytes bound and that
@@ -54,7 +58,9 @@ failure ends the run with a non-zero exit:
              5e-7), two launches bit for bit, timed beside its bound (bytes,
              or operations at the f32 peak for 48 x 48), its plain version
              (with its concatenations) and the cuBLAS route on operands
-             stacked beforehand (``library_ms``); then K7 crossdof_apply
+             stacked beforehand (``library_ms``), the two smaller Grams
+             also with their right side row-scaled, as K4's, bit for bit
+             and timed beside the unscaled; then K7 crossdof_apply
              (the cross-DoF eps^-1 in one pass) at N=120, m=16 with the
              cells' preset 0 (pair 12 alone, 2 taps), bit for bit against
              the eager composition it replaces, timed beside its bytes
@@ -271,7 +277,10 @@ that all the serial kernels launched); after both, the counter
 ``dense.matmul`` (complex64 block combinations past K4's limits, which
 take ``torch.matmul``) must read 0 and ``dense.k4`` more than 0, and
 ``dense.gram_plain`` (complex64 Grams past K6's limits, which take the
-cuBLAS route) 0 and ``dense.gram`` K6's launches, more than 0; K5
+cuBLAS route) 0 and ``dense.gram`` K6's launches, more than 0, and
+``dense.scaled`` (K4 and K6 launches that scale a block as they load it:
+the rs loop's W and P scalings, five an iteration) a multiple of 5, more
+than 0; K5
 (``op_pre``, ``op_post``) must launch wherever K4 must; K7
 (``crossdof_apply``) must launch in phase 11's cross-DoF sweep, once for
 each complex64 operator apply (as often as K5's pre pass); and once
@@ -856,7 +865,9 @@ def phase_k4(gen, dev, peak: float, m: int = 16) -> dict:
     concatenated blocks, then the subtraction);
     timed beside its bound, the plain version, one cuBLAS call of the same
     products on operands stacked beforehand (``library_ms``) and the
-    stacked composition with its concatenation (``stacked_ms``)."""
+    stacked composition with its concatenation (``stacked_ms``); then the
+    two SVQB projections with a scaled addend beside the same unscaled
+    (``phase_k4_scaled``)."""
     from pcx_torch.kernels.block_combine import (block_combine,
                                                  block_combine_plain,
                                                  bytes_moved)
@@ -919,12 +930,59 @@ def phase_k4(gen, dev, peak: float, m: int = 16) -> dict:
                      "share": b["bound_ms"] / ms, "max_abs_err": err,
                      "err_c128": err_k, "err_c128_plain": err_p,
                      "err_c128_stacked": err_lib}
+    out["projection"]["scaled"] = phase_k4_scaled(
+        gen, dev, ((x,), (coef[:m],)), ((x, w), (coef[:m], coef[m:2 * m])),
+        add)
     del stack, coef, add, x, w, calls
     torch.cuda.empty_cache()
     upd = out["update"]
     return {"name": "block_combine", "route": "cuda", "arith": FP32_FMA,
             "source": "pcx_torch/kernels/csrc/block_combine.cu",
             "replaces": None, **upd, "calls": out}
+
+
+def _scaled_vs_unscaled(kind: str, name: str, scaled_fn, unscaled_fn,
+                        want_fn) -> dict:
+    """A scaled launch (the rs loop's W and P scalings folded into the
+    load) against the unscaled launch on the materialised scaled operand
+    (``torch.equal``, or fail), both timed: the same bytes, so the scaled
+    form should take within 3% of the unscaled one's time."""
+    same = bool(torch.equal(scaled_fn(), want_fn()))
+    ms, base_ms = cuda_ms(scaled_fn), cuda_ms(unscaled_fn)
+    ratio = ms / base_ms
+    print(f"phase {kind} {name} scaled: equal to the launch on the "
+          f"materialised scaled operand {same}; scaled {ms:.3f} ms, "
+          f"unscaled {base_ms:.3f} ms ({100 * (ratio - 1):+.2f}%, within "
+          f"3% {abs(ratio - 1) <= 0.03})", flush=True)
+    if not same:
+        fail(f"{kind} {name}: the scaled launch differs from the launch on "
+             f"the materialised scaled operand")
+    return {"ms": ms, "unscaled_ms": base_ms, "ratio": ratio}
+
+
+def _row_scale(gen, dev, shape) -> torch.Tensor:
+    """A float32 row scale with every third row masked (0)."""
+    s = 2.0 * torch.rand(shape, generator=gen, device=dev)
+    s[..., ::3] = 0.0
+    return s
+
+
+def phase_k4_scaled(gen, dev, w_args, p_args, add) -> dict:
+    """K4's two SVQB projections with a scaled addend, W - X C (16 rows)
+    and P - [X|W] C (32 rows), each beside the same call unscaled."""
+    from pcx_torch.kernels.block_combine import block_combine
+    from pcx_torch.solvers.rayleigh_ritz import scale_cols
+    s = _row_scale(gen, dev, add.shape[:-1])
+    pre = scale_cols(add, s)
+    out = {}
+    for name, args in (("w_projection", w_args), ("p_projection", p_args)):
+        out[name] = _scaled_vs_unscaled(
+            "k4", name,
+            lambda: block_combine(*args, add, True, scale=s),
+            lambda: block_combine(*args, add, True),
+            lambda: block_combine(*args, pre, True))
+    del pre
+    return out
 
 
 def phase_k5(gen, dev, m: int = 16) -> dict:
@@ -1000,9 +1058,12 @@ def phase_k6(gen, dev, peak: float, m: int = 16) -> dict:
     cuBLAS route's and at most 5e-7), two launches bit for bit; timed
     beside its bound (bytes, or operations at the f32 peak), the plain
     version (the cuBLAS route with its concatenations) and the cuBLAS route
-    on operands stacked beforehand (``library_ms``)."""
+    on operands stacked beforehand (``library_ms``); the 16 x 16 Gram and
+    the projection also with their right side scaled, equal to the launch
+    on the materialised scaled block and timed beside the unscaled one."""
     from pcx_torch.kernels.gram_chunks import (bytes_moved, gram_chunks,
                                                gram_chunks_plain)
+    from pcx_torch.solvers.rayleigh_ritz import scale_cols
     d = 3 * N ** 3
     c = lambda *sh: torch.randn(sh, generator=gen, device=dev,
                                 dtype=torch.complex64)
@@ -1051,6 +1112,15 @@ def phase_k6(gen, dev, peak: float, m: int = 16) -> dict:
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      **b, "share": b["bound_ms"] / ms, "bytes": nbytes,
                      "err_c128": err_k, "err_c128_library": err_lib}
+        if name != "rayleigh_ritz":
+            # the SVQB projections of the rs loop take W and P scaled
+            sc = _row_scale(gen, dev, (q,))
+            pre = [scale_cols(right[0], sc)]
+            out[name]["scaled"] = _scaled_vs_unscaled(
+                "k6", name, lambda: gram_chunks(left, right, scale=sc),
+                lambda: gram_chunks(left, right),
+                lambda: gram_chunks(left, pre))
+            del pre
     del stack, hstack, s3, h3, calls
     torch.cuda.empty_cache()
     rr_rec = out["rayleigh_ritz"]
@@ -3140,7 +3210,9 @@ def dense_routes(where: str) -> None:
     complex64 block combination launched K4 (``dense.k4`` > 0), none took
     ``torch.matmul`` (``dense.matmul`` 0); every complex64 Gram launched
     K6 (``dense.gram`` > 0, as many as K6's launches), none took its plain
-    version (``dense.gram_plain`` 0)."""
+    version (``dense.gram_plain`` 0); the rs loop's W and P scalings rode
+    on K4's and K6's loads, five scaled launches an iteration
+    (``dense.scaled`` > 0, a multiple of 5)."""
     from pcx_torch import kernels as kmod
     from pcx_torch import tracing
     got = {k: v for k, v in tracing.counts().items()
@@ -3155,6 +3227,10 @@ def dense_routes(where: str) -> None:
             or got["dense.gram"] != launched):
         fail(f"a complex64 Gram took the cuBLAS route in {where}: {got}, "
              f"K6 launches {launched}")
+    scaled = got.get("dense.scaled", 0)
+    if not scaled or scaled % 5:
+        fail(f"the W and P scalings did not ride on five K4 and K6 loads an "
+             f"iteration in {where}: {got}")
 
 
 def main() -> None:

@@ -2,13 +2,16 @@
 
 ``out = A + sum_b C_b^T B_b`` for up to three input blocks B_b (..., p_b,
 D), their coefficients C_b (..., p_b, q) and an optional addend A (..., q,
-D), with a leading lane axis or without one; ``subtract`` takes A - sum. It
-serves every combination of the solvers' dense algebra (``rr.combine``,
-``rr.mix``): the SVQB projections and scalings, the LOBPCG update and the
-mixes of the complex family, Davidson/JD and the refines. The CUDA source
-is ``csrc/block_combine.cu``; its header says why the kernel exists (it
-replaces no Pallas kernel), what bounds it on the card and how the design
-answers it.
+D), with a leading lane axis or without one; ``subtract`` takes A - sum.
+An optional real ``scale`` s (..., q), one float32 a row of A, makes the
+addend s * A, each element multiplied by its row's scale as K4 loads it
+(the rs loop's W and P blocks enter their SVQB so, with no scaled copy).
+It serves every combination of the solvers' dense algebra
+(``rr.combine``, ``rr.mix``): the SVQB projections and scalings, the
+LOBPCG update and the mixes of the complex family, Davidson/JD and the
+refines. The CUDA source is ``csrc/block_combine.cu``; its header says why
+the kernel exists (it replaces no Pallas kernel), what bounds it on the
+card and how the design answers it.
 
 Every block and the addend are read where they lie: they need unit stride
 along D and may have any row and lane stride (slices of a stacked block,
@@ -32,13 +35,14 @@ import torch
 
 from pcx_torch import tracing
 from pcx_torch.kernels import _build
+from pcx_torch.utils import scale_cols
 
 MAX_BLOCKS = 3
 MAX_ROWS = 192     # sum of p_b (csrc/block_combine.cu kMaxRows)
 MAX_Q = 64         # output rows (kMaxQ)
 
 
-def _layout(blocks, coeffs, addend, subtract):
+def _layout(blocks, coeffs, addend, subtract, scale=None):
     """One walk over the operands: (why, ptrs, meta), ``why`` the reason K4
     does not take them (None where it does; ``ptrs`` and ``meta`` are then
     the arrays of the C entry ``pcx_block_combine``, the output's pointer
@@ -57,8 +61,8 @@ def _layout(blocks, coeffs, addend, subtract):
     lead, d = shape0[:-2], shape0[-1]
     q = coeffs[0].shape[-1]
     dev = b0.get_device()
-    ptrs = [0] * 8
-    meta = [nb, shape0[0] if lanes else 1, q, d, int(subtract)] + [0] * 20
+    ptrs = [0] * 9
+    meta = [nb, shape0[0] if lanes else 1, q, d, int(subtract)] + [0] * 22
     rows = 0
     for k in range(nb):
         b, c = blocks[k], coeffs[k]
@@ -93,6 +97,14 @@ def _layout(blocks, coeffs, addend, subtract):
             return why, None, None
         ptrs[6] = addend.data_ptr()
         meta[23:25] = st[:2] if lanes else (0, st[0])
+    if scale is not None:
+        if addend is None:
+            return "a scale without an addend", None, None
+        why = scale_refusal(scale, lead + (q,), b0.device)
+        if why:
+            return why, None, None
+        ptrs[8] = scale.data_ptr()
+        meta[25:27] = scale.stride() if lanes else (0, scale.stride(0))
     if rows > MAX_ROWS or not 1 <= q <= MAX_Q or d < 1:
         return (f"past the kernel's limits: {rows} rows (at most "
                 f"{MAX_ROWS}), {q} outputs (1 to {MAX_Q}), D = {d}"
@@ -117,30 +129,48 @@ def _refusal(t: torch.Tensor, dev: int, strides=None) -> Optional[str]:
     return None
 
 
+def scale_refusal(s: torch.Tensor, shape, device) -> Optional[str]:
+    """Why a kernel cannot read ``s`` as the float32 row scale of shape
+    ``shape`` on the operands' ``device`` (None where it can)."""
+    if s.dtype != torch.float32:
+        return f"a scale must be float32, got {s.dtype}"
+    if tuple(s.shape) != tuple(shape):
+        return f"scale {tuple(s.shape)}: want {tuple(shape)}, a row each"
+    if s.device != device:
+        return f"the scale is on {s.device}, the operands on {device}"
+    return None
+
+
 def problem(blocks: Sequence[torch.Tensor], coeffs: Sequence[torch.Tensor],
-            addend: Optional[torch.Tensor] = None) -> Optional[str]:
+            addend: Optional[torch.Tensor] = None,
+            scale: Optional[torch.Tensor] = None) -> Optional[str]:
     """Why K4 does not take these operands, or None where it does."""
-    return _layout(blocks, coeffs, addend, False)[0]
+    return _layout(blocks, coeffs, addend, False, scale)[0]
 
 
-def block_combine_plain(blocks, coeffs, addend=None, subtract=False):
+def block_combine_plain(blocks, coeffs, addend=None, subtract=False,
+                        scale=None):
     """Plain PyTorch K4: one ``torch.matmul`` over the blocks stacked (the
     concatenation the kernel does without; like the kernel, it sums the
-    rows of all blocks in one product), the addend last.  Takes any dtype
-    and any shapes ``torch.matmul`` broadcasts."""
+    rows of all blocks in one product), the addend last, scaled first by
+    ``scale`` where one is given (``scale_cols``, the eager complex-by-real
+    product).  Takes any dtype and any shapes ``torch.matmul``
+    broadcasts."""
     if len(blocks) == 1:
         acc = torch.matmul(coeffs[0].transpose(-2, -1), blocks[0])
     else:
         acc = torch.matmul(torch.cat(tuple(coeffs), -2).transpose(-2, -1),
                            torch.cat(tuple(blocks), -2))
     if addend is not None:
+        if scale is not None:
+            addend = scale_cols(addend, scale)
         acc = addend - acc if subtract else addend + acc
     return acc
 
 
 def bytes_moved(blocks, coeffs, addend=None) -> int:
     """The bytes a launch reads and writes once each: every block and the
-    addend in, the output out (the coefficients neglected)."""
+    addend in, the output out (the coefficients and a scale neglected)."""
     _, ptrs, meta = _layout(blocks, coeffs, addend, False)
     return _bytes(ptrs, meta)
 
@@ -152,11 +182,11 @@ def _bytes(ptrs, meta) -> int:
                                     + meta[2] * (1 + (ptrs[6] != 0)))
 
 
-def entry_args(blocks, coeffs, addend, subtract, out):
+def entry_args(blocks, coeffs, addend, subtract, out, scale=None):
     """The pointer and integer arrays of the C entry ``pcx_block_combine``
-    (csrc/block_combine.cu), strides in complex elements, 0 for an absent
+    (csrc/block_combine.cu), strides in elements, 0 for an absent
     operand; for operands that ``problem`` passes."""
-    _, ptrs, meta = _layout(blocks, coeffs, addend, subtract)
+    _, ptrs, meta = _layout(blocks, coeffs, addend, subtract, scale)
     ptrs[7] = out.data_ptr()
     return ptrs, meta
 
@@ -183,13 +213,16 @@ def _launch(ptrs, meta, b0: torch.Tensor) -> torch.Tensor:
 def block_combine(blocks: Sequence[torch.Tensor],
                   coeffs: Sequence[torch.Tensor],
                   addend: Optional[torch.Tensor] = None,
-                  subtract: bool = False) -> torch.Tensor:
-    """``addend +/- sum_b coeffs[b]^T blocks[b]`` (complex64).  Blocks
+                  subtract: bool = False,
+                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``s * addend +/- sum_b coeffs[b]^T blocks[b]`` (complex64).  Blocks
     (p_b, D) or (L, p_b, D) with unit stride along D, coefficients (p_b, q)
-    or (L, p_b, q), the addend (q, D) or (L, q, D); outputs contiguous.
-    Raises ValueError for operands outside the kernel's limits
-    (``problem``)."""
-    why, ptrs, meta = _layout(blocks, coeffs, addend, subtract)
+    or (L, p_b, q), the addend (q, D) or (L, q, D), the addend's optional
+    float32 row scale s (q,) or (L, q), any strides; outputs contiguous.
+    On the card the scaled launch equals the unscaled one on the
+    materialised s * addend bit for bit.  Raises ValueError for operands
+    outside the kernel's limits (``problem``)."""
+    why, ptrs, meta = _layout(blocks, coeffs, addend, subtract, scale)
     if why is not None:
         raise ValueError(f"block_combine: {why}")
     b0 = blocks[0]
@@ -198,7 +231,7 @@ def block_combine(blocks: Sequence[torch.Tensor],
     if b0.device.type != "cpu":
         raise ValueError(f"block_combine runs on cpu or cuda, not "
                          f"{b0.device}")
-    return block_combine_plain(blocks, coeffs, addend, subtract)
+    return block_combine_plain(blocks, coeffs, addend, subtract, scale)
 
 
 block_combine.launches = 0

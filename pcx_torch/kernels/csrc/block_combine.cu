@@ -39,6 +39,17 @@
 // of 16 (each chunk reads the inputs again).  No atomics, no reduction
 // across blocks: an output element depends only on its own column, so the
 // result does not depend on the grid.
+//
+// A scaled addend (`kScale`): the rs loop's W and P blocks enter their
+// SVQB's projection as s * block, a real scale a row (the column norm's
+// inverse times the active mask).  Rather than a pass that writes the
+// scaled copy, K4 takes s (one float32 a row of A, any lane and row
+// stride) and multiplies each addend element by its row's scale as it
+// adds it, in its own rounding: __fmul_rn, then the add, never contracted
+// into an FMA.  The eager complex-by-real product rounds each part once,
+// so the sum equals the launch on the materialised s * A bit for bit, and
+// the copy is neither written nor read.  The unscaled launch is the
+// kScale = false instance, today's code.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +75,8 @@ struct Problem {
   int nb;
   const float2* a;                      // addend or null
   long long a_ls, a_rs;
+  const float* s;                       // the addend rows' scale, or null
+  long long s_ls, s_rs;
   float2* out;                          // (L, q, D) contiguous
   float sign;                           // -1 with `sub`
   int rows, q;                          // rows = sum of p_b
@@ -120,7 +133,7 @@ __device__ __forceinline__ int block_of(int p0, int p1, int nb, int r,
   return 0;
 }
 
-template <int Q, bool kVec>
+template <int Q, bool kVec, bool kScale>
 __global__ void __launch_bounds__(kThreads, 3)
 block_combine_kernel(const Problem pr) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -128,6 +141,8 @@ block_combine_kernel(const Problem pr) {
   float* ring = reinterpret_cast<float*>(coef + pr.rows * Q);
   const float2** src =                                       // [steps]
       reinterpret_cast<const float2**>(ring + kRingBytes / 4);
+  // the chunk's addend scales, after the steps' pointers (kScale)
+  float* scl = reinterpret_cast<float*>(src + pr.rows + Q);
   const int tid = threadIdx.x;
   const int lane = blockIdx.y;
   const int j0 = blockIdx.z * Q;
@@ -163,6 +178,9 @@ block_combine_kernel(const Problem pr) {
     }
     src[r] = p;
   }
+  if (kScale)
+    for (int j = tid; j < qn; j += kThreads)
+      scl[j] = pr.s[lane * pr.s_ls + (long long)(j0 + j) * pr.s_rs];
   __syncthreads();
 
   // the lambdas below capture these copies, never the parameter struct
@@ -285,10 +303,19 @@ block_combine_kernel(const Problem pr) {
         if (j < qn) {
           float2 v[kPer];
           step(v);
+          if (kScale) {
+            const float sj = scl[j];
 #pragma unroll
-          for (int e = 0; e < kPer; ++e) {
-            acc[j][e].x += v[e].x;
-            acc[j][e].y += v[e].y;
+            for (int e = 0; e < kPer; ++e) {
+              acc[j][e].x += __fmul_rn(v[e].x, sj);
+              acc[j][e].y += __fmul_rn(v[e].y, sj);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < kPer; ++e) {
+              acc[j][e].x += v[e].x;
+              acc[j][e].y += v[e].y;
+            }
           }
         }
       }
@@ -298,21 +325,25 @@ block_combine_kernel(const Problem pr) {
   wait_pending<0>();
 }
 
-constexpr size_t smem_bytes(int rows, int q_chunk, bool addend) {
+// A scaled instance (always with an addend) keeps the chunk's scales
+// after the steps' pointers.
+constexpr size_t smem_bytes(int rows, int q_chunk, bool addend,
+                            bool scale) {
   return (size_t)rows * q_chunk * 8 + kRingBytes +
-         (size_t)(rows + (addend ? q_chunk : 0)) * 8;
+         (size_t)(rows + (addend ? q_chunk : 0)) * 8 +
+         (scale ? (size_t)q_chunk * 4 : 0);
 }
 
 // Every launch fits the 48 KB of dynamic shared memory a kernel gets
-// without opting in (42.6 KB at 192 rows, 16 outputs and an addend).
-static_assert(smem_bytes(kMaxRows, kMaxChunk, true) <= 48 * 1024,
+// without opting in (42.7 KB at 192 rows, 16 outputs and a scaled addend).
+static_assert(smem_bytes(kMaxRows, kMaxChunk, true, true) <= 48 * 1024,
               "K4's shared memory exceeds 48 KB");
 
-template <int Q, bool kVec>
+template <int Q, bool kVec, bool kScale>
 int launch(const Problem& pr, int lanes, cudaStream_t st) {
-  auto kernel = block_combine_kernel<Q, kVec>;
+  auto kernel = block_combine_kernel<Q, kVec, kScale>;
   const int nq = (pr.q + Q - 1) / Q;
-  const size_t smem = smem_bytes(pr.rows, Q, pr.a != nullptr);
+  const size_t smem = smem_bytes(pr.rows, Q, pr.a != nullptr, kScale);
   // The resident blocks of the last (device, shared memory) this thread
   // launched with: the occupancy query costs more host time than the rest
   // of a launch, and the solvers repeat a few shapes.
@@ -342,11 +373,11 @@ int launch(const Problem& pr, int lanes, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool kVec>
+template <bool kVec, bool kScale>
 int dispatch(const Problem& pr, int lanes, cudaStream_t st) {
-  if (pr.q <= 4) return launch<4, kVec>(pr, lanes, st);
-  if (pr.q <= 8) return launch<8, kVec>(pr, lanes, st);
-  return launch<kMaxChunk, kVec>(pr, lanes, st);
+  if (pr.q <= 4) return launch<4, kVec, kScale>(pr, lanes, st);
+  if (pr.q <= 8) return launch<8, kVec, kScale>(pr, lanes, st);
+  return launch<kMaxChunk, kVec, kScale>(pr, lanes, st);
 }
 
 bool aligned16(const void* p) {
@@ -355,13 +386,14 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// ptrs: b0, b1, b2, c0, c1, c2, a, out (null where absent).
+// ptrs: b0, b1, b2, c0, c1, c2, a, out, s (null where absent; s, the
+// addend rows' float32 scale, only with a).
 // meta: nb, lanes, q, D, sub, then per block b (three of each, unused ones
 // ignored) p_b; the blocks' lane and row strides b_ls, b_rs; the
-// coefficients' lane, row and column strides c_ls, c_rs, c_cs; then the
-// addend's lane and row strides -- 5 + 3 + 6 + 9 + 2 = 25 values, strides
-// in complex elements.  out is contiguous (L, q, D).  Launches on `stream`
-// and returns the cudaError_t (0 on success).
+// coefficients' lane, row and column strides c_ls, c_rs, c_cs; the
+// addend's lane and row strides; then the scale's -- 5 + 3 + 6 + 9 + 2 + 2
+// = 27 values, strides in elements.  out is contiguous (L, q, D).
+// Launches on `stream` and returns the cudaError_t (0 on success).
 extern "C" int pcx_block_combine(const void* const* ptrs,
                                  const long long* meta, void* stream) {
   Problem pr;
@@ -396,12 +428,19 @@ extern "C" int pcx_block_combine(const void* const* ptrs,
   pr.a_ls = meta[23];
   pr.a_rs = meta[24];
   pr.out = (float2*)ptrs[7];
-  if (pr.rows > kMaxRows || pr.out == nullptr)
+  pr.s = (const float*)ptrs[8];
+  pr.s_ls = meta[25];
+  pr.s_rs = meta[26];
+  if (pr.rows > kMaxRows || pr.out == nullptr ||
+      (pr.s != nullptr && pr.a == nullptr))
     return (int)cudaErrorInvalidValue;
   if (pr.a != nullptr)
     vec = vec && aligned16(pr.a) && pr.a_ls % 2 == 0 && pr.a_rs % 2 == 0;
   vec = vec && aligned16(pr.out);
   cudaStream_t st = (cudaStream_t)stream;
-  return vec ? dispatch<true>(pr, (int)lanes, st)
-             : dispatch<false>(pr, (int)lanes, st);
+  if (pr.s != nullptr)
+    return vec ? dispatch<true, true>(pr, (int)lanes, st)
+               : dispatch<false, true>(pr, (int)lanes, st);
+  return vec ? dispatch<true, false>(pr, (int)lanes, st)
+             : dispatch<false, false>(pr, (int)lanes, st);
 }

@@ -3,13 +3,17 @@
 ``G = conj(L R^H)``, ``G[i, j] = sum_d conj(L[i, d]) R[j, d]``, for up to
 three row-blocks stacked on the left, L_b (..., p_b, D), and up to three on
 the right, R_b (..., q_b, D), complex64, with a leading lane axis or
-without one.  It serves every complex64 Gram of the solvers on the card
-(``rr.gram_f64`` and its complex64 rounding ``rr.gram``): the SVQB Grams
-and projections, the Rayleigh-Ritz Gram of the six blocks of the rs loop,
-the Grams of the complex family, Davidson/JD and the light refine.  The
-CUDA source is ``csrc/gram_chunks.cu``; its header says why the kernel
-exists (it replaces no Pallas kernel), what bounds it on the card and how
-the design answers it.
+without one.  An optional real ``scale`` s (..., Q), one float32 a row of
+the stacked right side, makes the right side s * R, each element
+multiplied by its row's scale as K6 stages it (the rs loop's W and P
+blocks enter their SVQB's projection so, with no scaled copy).  It
+serves every complex64 Gram of the solvers on the card (``rr.gram_f64``
+and its complex64 rounding ``rr.gram``): the SVQB Grams and projections,
+the Rayleigh-Ritz Gram of the six blocks of the rs loop, the Grams of the
+complex family, Davidson/JD and the light refine.  The CUDA source is
+``csrc/gram_chunks.cu``; its header says why the kernel exists (it
+replaces no Pallas kernel), what bounds it on the card and how the design
+answers it.
 
 Numerics are F3's (``GRAM_CHUNK``): a float32 partial of each chunk of
 ``divisor_chunk(D, GRAM_CHUNK)`` columns (the ragged tail masked), the
@@ -18,8 +22,8 @@ is complex128, or rounded to complex64.
 
 Every block is read where it lies: it needs unit stride along D and may
 have any row and lane stride (the separate X, W and P blocks, slices of a
-stacked block).  Where the right side is the left side (the same tensors)
-its rows are read once.  The wrapper reads nothing back to the host.
+stacked block).  Where the right side is the left side (the same tensors,
+unscaled) its rows are read once.  The wrapper reads nothing back to the host.
 
 ``gram_chunks`` is the one entry point: it checks the operands in one walk
 that also builds the C entry's arguments (``problem`` says why a call lies
@@ -41,6 +45,8 @@ import torch
 
 from pcx_torch import tracing
 from pcx_torch.kernels import _build
+from pcx_torch.kernels.block_combine import scale_refusal
+from pcx_torch.utils import scale_cols
 
 MAX_BLOCKS = 3
 MAX_SIDE = 48      # rows a side, sum of p_b (csrc/gram_chunks.cu kMaxSide)
@@ -83,15 +89,19 @@ def _stacked(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def gram_chunks_plain(lefts: Sequence[torch.Tensor],
                       rights: Sequence[torch.Tensor],
-                      chunk: int = 0) -> torch.Tensor:
+                      chunk: int = 0,
+                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain K6: the Gram of the stacked blocks as working-precision
     ``torch.matmul`` partials over D-chunks, summed in double (complex128;
-    float64 for real blocks) and conjugated.  ``chunk=0`` picks
-    ``divisor_chunk(D, GRAM_CHUNK)``.  Lanes (L, p, D) take one batched
-    GEMM each: the chunked view of a lane is a strided batch, that of all
-    lanes is not, and one GEMM over them would copy both operands.  Takes
-    any dtype and device."""
+    float64 for real blocks) and conjugated; the stacked right side scaled
+    first by ``scale`` where one is given (``scale_cols``).  ``chunk=0``
+    picks ``divisor_chunk(D, GRAM_CHUNK)``.  Lanes (L, p, D) take one
+    batched GEMM each: the chunked view of a lane is a strided batch, that
+    of all lanes is not, and one GEMM over them would copy both operands.
+    Takes any dtype and device."""
     x, y = _stacked(lefts), _stacked(rights)
+    if scale is not None:
+        y = scale_cols(y, scale)
     if x.dim() > 2:
         return torch.stack([gram_chunks_plain((a,), (b,), chunk)
                             for a, b in zip(x, y)])
@@ -146,7 +156,7 @@ def _side(blocks, dims, lead, d, dev, meta, ptrs, at: int):
     return None, rows
 
 
-def _layout(lefts, rights, chunk: int, c64: bool):
+def _layout(lefts, rights, chunk: int, c64: bool, scale=None):
     """One walk over the operands: (why, ptrs, meta), ``why`` the reason K6
     does not take them (None where it does; ``ptrs`` and ``meta`` are then
     the arrays of the C entry ``pcx_gram_chunks``, the scratch's and the
@@ -162,18 +172,25 @@ def _layout(lefts, rights, chunk: int, c64: bool):
     dev = lefts[0].get_device()
     lanes = shape0[0] if dims == 3 else 1
     chunk = chunk or divisor_chunk(d, GRAM_CHUNK)
-    ptrs = [0] * 8
-    meta = [len(lefts), len(rights), lanes, d, chunk, 0, 0, int(c64)] + [0] * 18
+    ptrs = [0] * 9
+    meta = [len(lefts), len(rights), lanes, d, chunk, 0, 0, int(c64)]
+    meta += [0] * 20
     for at, side in enumerate((lefts, rights)):
-        why, _ = _side(side, dims, lead, d, dev, meta, ptrs, at)
+        why, rows = _side(side, dims, lead, d, dev, meta, ptrs, at)
         if why:
             return why, None, None
+    if scale is not None:
+        why = scale_refusal(scale, lead + (rows,), lefts[0].device)
+        if why:
+            return why, None, None
+        ptrs[8] = scale.data_ptr()
+        meta[26:28] = scale.stride() if dims == 3 else (0, scale.stride(0))
     if not 1 <= chunk <= d:
         return f"chunk {chunk} outside 1 to D = {d}", None, None
     if lanes > 65535:
         return f"{lanes} lanes (at most 65535)", None, None
     meta[5] = groups(sum(meta[8:11]), sum(meta[11:14]), -(-d // chunk))
-    meta[6] = int(len(lefts) == len(rights) and all(
+    meta[6] = int(scale is None and len(lefts) == len(rights) and all(
         a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
                    and a.stride() == b.stride())
         for a, b in zip(lefts, rights)))
@@ -181,15 +198,16 @@ def _layout(lefts, rights, chunk: int, c64: bool):
 
 
 def problem(lefts: Sequence[torch.Tensor],
-            rights: Sequence[torch.Tensor]) -> Optional[str]:
+            rights: Sequence[torch.Tensor],
+            scale: Optional[torch.Tensor] = None) -> Optional[str]:
     """Why K6 does not take these operands, or None where it does."""
-    return _layout(lefts, rights, 0, False)[0]
+    return _layout(lefts, rights, 0, False, scale)[0]
 
 
 def _bytes(meta) -> int:
     """The bytes a launch moves: every block read once (the right side not
     at all where it is the left), the complex128 partials written and read
-    once: 8 L D (P + Q) + 32 L groups P Q."""
+    once: 8 L D (P + Q) + 32 L groups P Q (a scale neglected)."""
     lanes, d, ngroups = meta[2], meta[3], meta[5]
     p, q = sum(meta[8:11]), sum(meta[11:14])
     return (8 * lanes * d * (p + (0 if meta[6] else q))
@@ -228,12 +246,15 @@ def _launch(ptrs, meta, b0: torch.Tensor) -> torch.Tensor:
 
 def gram_chunks(lefts: Sequence[torch.Tensor],
                 rights: Sequence[torch.Tensor], chunk: int = 0,
-                c64: bool = False) -> torch.Tensor:
-    """conj(L R^H) of the stacked left and right blocks, complex128, or
+                c64: bool = False,
+                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conj(L (s R)^H) of the stacked left and right blocks, complex128, or
     rounded to complex64 with ``c64``: (P, Q), or (L, P, Q) for blocks with
-    a lane axis.  Raises ValueError for operands outside the kernel's
-    limits (``problem``)."""
-    why, ptrs, meta = _layout(lefts, rights, chunk, c64)
+    a lane axis; s the optional float32 scale of the stacked right rows,
+    (Q,) or (L, Q), any strides (on the card the launch equals the one on
+    the materialised s * R bit for bit).  Raises ValueError for operands
+    outside the kernel's limits (``problem``)."""
+    why, ptrs, meta = _layout(lefts, rights, chunk, c64, scale)
     if why is not None:
         raise ValueError(f"gram_chunks: {why}")
     b0 = lefts[0]
@@ -241,7 +262,7 @@ def gram_chunks(lefts: Sequence[torch.Tensor],
         return _launch(ptrs, meta, b0)
     if b0.device.type != "cpu":
         raise ValueError(f"gram_chunks runs on cpu or cuda, not {b0.device}")
-    g = gram_chunks_plain(lefts, rights, chunk)
+    g = gram_chunks_plain(lefts, rights, chunk, scale)
     return g.to(torch.complex64) if c64 else g
 
 

@@ -367,9 +367,12 @@ def lobpcg_sep_rs_lanes(
         r, c = a.shape[:2]
         return h_func(a.reshape((r, c) + shape[1:]), lanes).reshape(r, c, -1)
 
+    def unit_scale(a: torch.Tensor) -> torch.Tensor:
+        """The scale of a's rows to unit norm, (L, c)."""
+        return 1.0 / rr.colnorms(a, lanes=True).clamp(min=tiny)
+
     def unit_cols(a: torch.Tensor) -> torch.Tensor:
-        return rr.scale_cols(a, 1.0 / rr.colnorms(a, lanes=True).clamp(
-            min=tiny))
+        return rr.scale_cols(a, unit_scale(a))
 
     def masked_rr(t: torch.Tensor, mask: torch.Tensor, sentinel: float):
         """Hermitize each lane's T on its kept rows/columns and decouple the
@@ -508,21 +511,24 @@ def lobpcg_sep_rs_lanes(
         else:
             w = gather(w_raw)
         del r, w_raw
-        w = unit_cols(acol * w)
-        w, _, w_ok = rr.masked_svqb_drop(w, sel, noise_floor, against=(x,),
-                                         passes=ortho_passes)
+        # W and P enter their SVQB as unit columns on the active mask,
+        # s * block with s = mask / norm: the first projection (K6's Gram,
+        # K4's addends) scales the rows as it reads them, and no scaled
+        # copy is written.  An active row's norm is its masked row's and a
+        # masked row's s is 0, so this is the masked unit block, bit for
+        # bit.
+        w, _, w_ok = rr.masked_svqb_drop(
+            w, sel, noise_floor, against=(x,), passes=ortho_passes,
+            scale=sel * unit_scale(w))
         hw = hf(w, run)
 
         p_act = sel * (1.0 if it > 0 and use_p else 0.0)
-        pc = p_act[..., None]
-        pg, hpg = gather(p), gather(hp)
-        pn = rr.colnorms(pc * pg, lanes=True)
-        inv_pn = (1.0 / pn.clamp(min=tiny))[..., None]
-        pf, hpf = inv_pn * (pc * pg), inv_pn * (pc * hpg)
-        del pg, hpg
+        pg = gather(p)
+        ps = p_act * unit_scale(pg)
         pf, hpf, p_ok = rr.masked_svqb_drop(
-            pf, p_act, noise_floor, hblock=hpf, against=(x, w),
-            h_against=(hx, hw), passes=ortho_passes)
+            pg, p_act, noise_floor, hblock=gather(hp), against=(x, w),
+            h_against=(hx, hw), passes=ortho_passes, scale=ps)
+        del pg
 
         with tracing.span("pcx.rr"):
             basis_mask = torch.cat((x_ok, w_ok, p_ok), dim=-1)

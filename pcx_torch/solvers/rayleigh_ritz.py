@@ -37,7 +37,7 @@ from pcx_torch.kernels.block_combine import (MAX_Q, MAX_ROWS, block_combine,
                                              block_combine_plain)
 from pcx_torch.kernels.gram_chunks import (MAX_SIDE as GRAM_MAX_SIDE,
                                            gram_chunks, gram_chunks_plain)
-from pcx_torch.utils import all_reduce_sum, norms, real_dtype
+from pcx_torch.utils import all_reduce_sum, norms, real_dtype, scale_cols
 
 C128 = torch.complex128
 
@@ -51,14 +51,18 @@ def _blocks(x) -> tuple:
     return (x,) if isinstance(x, torch.Tensor) else tuple(x)
 
 
-def _gram(x, y, chunk: int, reduce_axis, rounded: bool) -> torch.Tensor:
+def _gram(x, y, chunk: int, reduce_axis, rounded: bool,
+          scale=None) -> torch.Tensor:
     """The Gram of ``gram_f64``, rounded to the blocks' dtype with
-    ``rounded``.  Routed by dtype, device and size alone: on the card a
-    complex64 call within kernel K6's row limits is one launch of K6, which
-    reads the blocks where they lie, or raises where K6 cannot read an
-    operand (counter ``dense.gram``); a complex64 call past those limits
-    is K6's plain version (``dense.gram_plain``), as is a call in another
-    dtype (complex128: the refine, ``f64_truth``) and every CPU call."""
+    ``rounded``, of the right rows scaled by ``scale`` where one is given.
+    Routed by dtype, device and size alone: on the card a complex64 call
+    within kernel K6's row limits is one launch of K6, which reads the
+    blocks where they lie and scales the right rows as it stages them, or
+    raises where K6 cannot read an operand (counter ``dense.gram``, and
+    ``dense.scaled`` for a scaled launch); a complex64 call past those
+    limits is K6's plain version (``dense.gram_plain``), as is a call in
+    another dtype (complex128: the refine, ``f64_truth``) and every CPU
+    call."""
     xs, ys = _blocks(x), _blocks(y)
     b0 = xs[0]
     dtype = b0.dtype
@@ -67,14 +71,16 @@ def _gram(x, y, chunk: int, reduce_axis, rounded: bool) -> torch.Tensor:
                 and sum(b.shape[-2] for b in ys) <= GRAM_MAX_SIDE):
             # the kernel rounds, unless the sum is all-reduced first
             in_kernel = rounded and reduce_axis is None
-            g = gram_chunks(xs, ys, chunk, c64=in_kernel)
+            g = gram_chunks(xs, ys, chunk, c64=in_kernel, scale=scale)
             tracing.count("dense.gram")
+            if scale is not None:
+                tracing.count("dense.scaled")
             if in_kernel:
                 return g
             g = all_reduce_sum(g, reduce_axis)
             return g.to(dtype) if rounded else g
         tracing.count("dense.gram_plain")
-    g = all_reduce_sum(gram_chunks_plain(xs, ys, chunk), reduce_axis)
+    g = all_reduce_sum(gram_chunks_plain(xs, ys, chunk, scale), reduce_axis)
     return g.to(dtype) if rounded else g
 
 
@@ -90,24 +96,29 @@ def gram_f64(x, y, chunk: int = 0, reduce_axis=None) -> torch.Tensor:
     return _gram(x, y, chunk, reduce_axis, False)
 
 
-def gram(x, y, reduce_axis=None) -> torch.Tensor:
+def gram(x, y, reduce_axis=None, scale=None) -> torch.Tensor:
     """The Gram conj(X) Y^T (p, q) in the working precision, for
     projections (twin of ``rayleigh_ritz.gram_p32``): ``gram_f64``
-    rounded, as one GEMM over all of D loses digits on the card."""
-    return _gram(x, y, 0, reduce_axis, True)
+    rounded, as one GEMM over all of D loses digits on the card.
+    ``scale`` (..., q), real: the Gram of ``scale_cols(Y, scale)``, which
+    K6 forms without the scaled copy."""
+    return _gram(x, y, 0, reduce_axis, True, scale)
 
 
 def combine(blocks: Sequence[torch.Tensor], coeffs: Sequence[torch.Tensor],
             addend: Optional[torch.Tensor] = None,
-            subtract: bool = False) -> torch.Tensor:
+            subtract: bool = False,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out_j = addend_j + sum_b sum_i coeffs[b][i, j] blocks[b]_i (with
     ``subtract``, addend_j minus the sum) for blocks (..., p_b, D),
     coefficients (..., p_b, q) and an addend (..., q, D): the rows of all
-    blocks summed in order, the addend last.  Routed by dtype and size
-    alone: on the card a complex64 call within kernel K4's row and output
-    limits is one launch of K4, which reads the blocks where they lie, or
-    raises where K4 cannot read an operand (counter ``dense.k4``); a
-    complex64 call past those limits is K4's plain version, one
+    blocks summed in order, the addend last; with ``scale`` (..., q), real,
+    the addend is ``scale_cols(addend, scale)``, which K4 forms as it loads
+    the addend.  Routed by dtype and size alone: on the card a complex64
+    call within kernel K4's row and output limits is one launch of K4,
+    which reads the blocks where they lie, or raises where K4 cannot read
+    an operand (counter ``dense.k4``, and ``dense.scaled`` for a scaled
+    launch); a complex64 call past those limits is K4's plain version, one
     ``torch.matmul`` over the stacked blocks (``dense.matmul``), as is a
     call in another dtype (complex128: the refine, ``f64_truth``) and every
     CPU call."""
@@ -115,11 +126,13 @@ def combine(blocks: Sequence[torch.Tensor], coeffs: Sequence[torch.Tensor],
     if b0.is_cuda and b0.dtype == torch.complex64:
         if (coeffs[0].shape[-1] <= MAX_Q
                 and sum(b.shape[-2] for b in blocks) <= MAX_ROWS):
-            out = block_combine(blocks, coeffs, addend, subtract)
+            out = block_combine(blocks, coeffs, addend, subtract, scale)
             tracing.count("dense.k4")
+            if scale is not None:
+                tracing.count("dense.scaled")
             return out
         tracing.count("dense.matmul")
-    return block_combine_plain(blocks, coeffs, addend, subtract)
+    return block_combine_plain(blocks, coeffs, addend, subtract, scale)
 
 
 def mix(c: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -136,13 +149,6 @@ def colnorms(x: torch.Tensor, reduce_axis=None,
     if lanes:
         return norms(x.flatten(0, 1), reduce_axis).view(x.shape[:2])
     return norms(x, reduce_axis)
-
-
-def scale_cols(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Each vector of x scaled by its entry of s: the shape of s is that of
-    x's leading axes ((m,) for a block, (L, m) for lanes)."""
-    return x * s.reshape(s.shape + (1,) * (x.dim() - s.dim())).to(
-        real_dtype(x.dtype))
 
 
 def split_for(rdtype: torch.dtype, svqb: bool = False) -> float:
@@ -183,17 +189,18 @@ def _absmax(a: torch.Tensor) -> torch.Tensor:
 
 
 def _projection(against: Sequence[torch.Tensor], block: torch.Tensor,
-                reduce_axis=None) -> Sequence[torch.Tensor]:
-    """The coefficients of ``block`` on each base of ``against`` (the
-    Grams base^H block).  A complex64 block on the card takes one Gram of
-    the stacked bases (kernel K6 reads each base where it lies and the
-    block once), its rows split by base; elsewhere each base takes its own
-    Gram, as a BLAS may round a row of a stacked product otherwise
-    (complex128 blocks of 5 rows on the CPU)."""
+                reduce_axis=None, scale=None) -> Sequence[torch.Tensor]:
+    """The coefficients of ``scale_cols(block, scale)`` (``block`` where
+    ``scale`` is None) on each base of ``against`` (the Grams base^H
+    block).  A complex64 block on the card takes one Gram of the stacked
+    bases (kernel K6 reads each base where it lies and the block once,
+    scaling its rows as it stages them), its rows split by base; elsewhere
+    each base takes its own Gram, as a BLAS may round a row of a stacked
+    product otherwise (complex128 blocks of 5 rows on the CPU)."""
     if block.is_cuda and block.dtype == torch.complex64:
-        return torch.split(gram(against, block, reduce_axis),
+        return torch.split(gram(against, block, reduce_axis, scale),
                            [b.shape[-2] for b in against], dim=-2)
-    return [gram(base, block, reduce_axis) for base in against]
+    return [gram(base, block, reduce_axis, scale) for base in against]
 
 
 @tracing.spanned("pcx.svqb")
@@ -201,7 +208,8 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
                      drop_tol: float, hblock: Optional[torch.Tensor] = None,
                      against: Sequence[torch.Tensor] = (),
                      h_against: Sequence[torch.Tensor] = (),
-                     passes: int = 2, reduce_axis=None):
+                     passes: int = 2, reduce_axis=None,
+                     scale: Optional[torch.Tensor] = None):
     """SVQB orthonormalization with dependent-direction DROPPING
     (twin of ``rayleigh_ritz.masked_svqb_drop_p``).
 
@@ -213,7 +221,21 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     passes are Gram Newton-Schulz steps (3 diag(mask) - G) / 2.
     ``hblock``/``h_against`` follow the same combinations.  Returns
     (q, hq, new_mask) with the mask in the real dtype.  Lanes: blocks
-    (L, p, D) with an (L, p) mask, each lane with its own drop threshold."""
+    (L, p, D) with an (L, p) mask, each lane with its own drop threshold.
+
+    ``scale`` (shaped like the mask, real): the input is
+    ``scale_cols(block, scale)`` and ``scale_cols(hblock, scale)`` (H is
+    linear), which the first pass's projection forms as it reads the
+    blocks (K6's Gram, K4's addends: no scaled copy on the card, the same
+    bits).  It needs bases to project on (``against``, and ``h_against``
+    with an ``hblock``)."""
+    if scale is not None and (not against
+                              or (hblock is not None and not h_against)):
+        raise ValueError("masked_svqb_drop: a scale is applied by the first "
+                         "pass's projection and needs its bases")
+    if scale is not None and passes < 1:
+        block = scale_cols(block, scale)
+        hblock = None if hblock is None else scale_cols(hblock, scale)
     cdtype = block.dtype
     rdtype = real_dtype(cdtype)
     mask = mask.to(torch.float64)
@@ -222,10 +244,13 @@ def masked_svqb_drop(block: torch.Tensor, mask: torch.Tensor,
     hb = hblock
     for pno in range(passes):
         if against:
-            coeffs = _projection(against, block, reduce_axis)
-            block = combine(against, coeffs, block, subtract=True)
+            coeffs = _projection(against, block, reduce_axis, scale)
+            block = combine(against, coeffs, block, subtract=True,
+                            scale=scale)
             if hb is not None and h_against:
-                hb = combine(h_against, coeffs, hb, subtract=True)
+                hb = combine(h_against, coeffs, hb, subtract=True,
+                             scale=scale)
+            scale = None
         keep = mask[..., :, None] * mask[..., None, :]
         g = hermitize(gram_f64(block, block, reduce_axis=reduce_axis)) * keep
         if pno == 0:

@@ -32,6 +32,13 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
     return _REAL.get(dtype, dtype)
 
 
+def scale_cols(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Each vector of x scaled by its entry of s: the shape of s is that of
+    x's leading axes ((m,) for a block, (L, m) for lanes)."""
+    return x * s.reshape(s.shape + (1,) * (x.dim() - s.dim())).to(
+        real_dtype(x.dtype))
+
+
 def generator(seed: int, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
     gen = torch.Generator(device=device)

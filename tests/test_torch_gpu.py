@@ -9,9 +9,12 @@ against the CPU's, the complex route's two DFTs, and kernel K4 (the dense
 algebra's block combinations) and kernel K5 (the operator's block
 multiplies around K2) against their plain versions and complex128 and on
 the solvers' paths, and kernel K6 (the dense algebra's Grams) against
-complex128 and the cuBLAS route, and on the solvers' paths; K7's and K3's
-byte counters, and an fcc preset-1 cross-DoF solve at N=120 judged by the
-benchmark's plain reference.
+complex128 and the cuBLAS route, and on the solvers' paths; K4's scaled
+addend and K6's scaled right side against the launches on the
+materialised scaled operands, and a warm solve against the same solve
+with the scaled blocks written first; K7's and K3's byte counters, and an
+fcc preset-1 cross-DoF solve at N=120 judged by the benchmark's plain
+reference.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no interpret mode).  The file imports torch and pcx_torch only, so it runs
@@ -1081,6 +1084,108 @@ def test_k6_takes_every_gram_of_a_complex64_solve(how, monkeypatch):
     assert counts.get("dense.gram_plain", 0) == 0
     assert counts["dense.gram"] == formed[0] > 0
     assert counts["gram.bytes"] > 0
+
+
+# The rs loop's W and P column scalings folded into the loads: K4's
+# addend and K6's right side scaled by a float32 row scale (masked rows
+# 0), each launch against the launch on the materialised scaled operand
+K4_SCALED = {"16-16": ((16,), False), "32-16": ((16, 16), False),
+             "8-byte": ((16,), True)}
+
+
+def _row_scale(gen, shape, dev):
+    s = 2.0 * torch.rand(shape, generator=gen, device=dev)
+    s[..., ::3] = 0.0
+    return s
+
+
+@pytest.mark.parametrize("case", list(K4_SCALED))
+def test_k4_scaled_addend_equals_the_materialised_addend(case):
+    """K4 with a scaled addend, subtracted and added, at 16 -> 16, at
+    32 -> 16 and on the 8-byte load path: ``torch.equal`` to K4 on
+    ``rr.scale_cols(addend, s)``."""
+    rows, odd = K4_SCALED[case]
+    dev = _cuda()
+    d = 3 * 120 ** 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    c = lambda *s: torch.randn(s, generator=gen, device=dev,
+                               dtype=torch.complex64)
+    n = sum(rows) + 16
+    stack = c(n + 1, d)[1:] if odd else c(n, d)   # odd: 8-byte aligned
+    offs = np.cumsum((0,) + rows)
+    blocks = tuple(stack[o:o + r] for o, r in zip(offs, rows))
+    add = stack[sum(rows):]
+    coeffs = tuple(c(r, 16) for r in rows)
+    s = _row_scale(gen, (16,), dev)
+    scaled = rr.scale_cols(add, s)
+    for sub in (True, False):
+        got = block_combine(blocks, coeffs, add, sub, scale=s)
+        want = block_combine(blocks, coeffs, scaled, sub)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["16x16", "32x16", "lanes", "8-byte"])
+def test_k6_scaled_right_side_equals_the_materialised_side(case):
+    """K6 with its right rows scaled, at 16 x 16, at 32 x 16 (the second
+    SVQB's projection), on two lanes and on the 8-byte path (odd D):
+    ``torch.equal`` to K6 on ``rr.scale_cols(right, s)``, complex128 and
+    rounded to complex64."""
+    from pcx_torch.kernels import gram_chunks
+    dev = _cuda()
+    lanes = 2 if case == "lanes" else None
+    d = {"lanes": 3 * 64 ** 3, "8-byte": 3 * 75 ** 3}.get(case, 3 * 120 ** 3)
+    blocks = _k6_blocks(dev, 42, lanes=lanes, d=d)
+    left, right = ([blocks[i] for i in idx]
+                   for idx in K6_CASES["32x16" if case == "32x16"
+                                       else "16x16"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    s = _row_scale(gen, (() if lanes is None else (lanes,)) + (16,), dev)
+    scaled = [rr.scale_cols(right[0], s)]
+    for c64 in (False, True):
+        got = gram_chunks(left, right, c64=c64, scale=s)
+        want = gram_chunks(left, scaled, c64=c64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    del blocks, scaled
+    torch.cuda.empty_cache()
+
+
+def test_warm_solve_with_scaled_loads_equals_the_materialised_scalings(
+        monkeypatch):
+    """A warm complex64 fcc point at N=32 on the card: the solve whose W and
+    P scalings K4 and K6 apply as they load equals the same solve with
+    ``masked_svqb_drop`` writing the scaled blocks first, in iterations,
+    status, lambdas and x; and ``dense.scaled`` counts five scaled launches
+    an iteration (W's projection Gram and addend, P's Gram and its P and
+    H P addends)."""
+    from pcx_torch import tracing
+    from pcx_torch.lattices import k_path
+    dev = _cuda()
+    kps = KPointSolver(ProblemConfig(n=32, lattice="fcc", nev=6),
+                       device=dev, dtype=torch.complex64, refine=False)
+    start = kps.solve(k_path("fcc")[9]).x
+    alpha = k_path("fcc")[10]
+    tracing.reset()
+    got = kps.solve(alpha, x0=start)
+    scaled = tracing.counts().get("dense.scaled", 0)
+    svqb = rr.masked_svqb_drop
+
+    def materialised(block, mask, drop_tol, hblock=None, scale=None, **kw):
+        if scale is not None:
+            block = rr.scale_cols(block, scale)
+            if hblock is not None:
+                hblock = rr.scale_cols(hblock, scale)
+        return svqb(block, mask, drop_tol, hblock=hblock, **kw)
+
+    monkeypatch.setattr(rr, "masked_svqb_drop", materialised)
+    want = kps.solve(alpha, x0=start)
+    assert (got.iterations, got.status) == (want.iterations, want.status)
+    assert np.array_equal(got.lambdas, want.lambdas)
+    assert torch.equal(got.x, want.x)
+    assert scaled == 5 * got.iterations > 0
 
 
 @pytest.mark.parametrize("n, blocks", [(120, 2), (150, 1)])

@@ -136,13 +136,17 @@ def test_bytes_read_each_block_once():
 def _stacked_forms(monkeypatch):
     """Put back the stacked forms the solvers used before K6: every
     multi-block Gram and combination concatenates its blocks first and
-    takes the stacked Gram of before and one ``torch.matmul``."""
+    takes the stacked Gram of before and one ``torch.matmul``; a row scale
+    (the rs loop's W and P scalings) is applied to its block first, as the
+    loop did before the kernels took it."""
     def gram_f64(x, y, chunk=0, reduce_axis=None):
         cat = lambda a: a if isinstance(a, torch.Tensor) else torch.cat(
             tuple(a), -2)
         return _stacked_gram(cat(x), cat(y), chunk)
 
-    def combine(blocks, coeffs, addend=None, subtract=False):
+    def combine(blocks, coeffs, addend=None, subtract=False, scale=None):
+        if scale is not None:
+            addend = rr.scale_cols(addend, scale)
         return block_combine_plain((torch.cat(tuple(blocks), -2),),
                                    (torch.cat(tuple(coeffs), -2),),
                                    addend, subtract)
@@ -152,8 +156,10 @@ def _stacked_forms(monkeypatch):
         x, y).to((x if isinstance(x, torch.Tensor) else x[0]).dtype))
     monkeypatch.setattr(rr, "combine", combine)
     monkeypatch.setattr(rr, "_projection",
-                        lambda against, block, ra=None: [
-                            rr.gram(base, block) for base in against])
+                        lambda against, block, ra=None, scale=None: [
+                            rr.gram(base, block if scale is None
+                                    else rr.scale_cols(block, scale))
+                            for base in against])
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])

@@ -187,9 +187,9 @@ def test_block_combine_wrapper_refuses_what_the_kernel_cannot_take(rng):
 def test_block_combine_entry_args_address_the_operands(rng, lanes):
     """The integer array the C entry reads (csrc/block_combine.cu: p_b at
     5 + b, the blocks' lane and row strides at 8 + 2b, the coefficients'
-    at 14 + 3b, the addend's at 23) addresses each operand where it lies:
-    ``as_strided`` with those strides at the operand's pointer gives it
-    back."""
+    at 14 + 3b, the addend's at 23, the addend's scale's at 25) addresses
+    each operand where it lies: ``as_strided`` with those strides at the
+    operand's pointer gives it back."""
     from pcx_torch.kernels.block_combine import entry_args
     lead = (3,) if lanes else ()
     stack = torch.as_tensor(_blk(rng, *lead, 48, 64)).to(torch.complex64)
@@ -198,8 +198,8 @@ def test_block_combine_entry_args_address_the_operands(rng, lanes):
     blocks = (stack[..., 16:, :], stack[..., :16, :])
     coeffs = (coef[..., 16:, :], coef[..., :16, :])
     ptrs, meta = entry_args(blocks, coeffs, add, True, add)
-    assert meta[:5] == [2, 3 if lanes else 1, 16, 64, 1] and len(meta) == 25
-    assert ptrs[2] == ptrs[5] == 0 and len(ptrs) == 8
+    assert meta[:5] == [2, 3 if lanes else 1, 16, 64, 1] and len(meta) == 27
+    assert ptrs[2] == ptrs[5] == ptrs[8] == 0 and len(ptrs) == 9
 
     def at(base, ptr, shape, strides):
         off = base.storage_offset() + (ptr - base.data_ptr()) // 8
@@ -216,8 +216,13 @@ def test_block_combine_entry_args_address_the_operands(rng, lanes):
         assert torch.equal(got.reshape(c.shape), c)
     got = at(add, ptrs[6], (n_l, 16, 64), (meta[23], meta[24], 1))
     assert torch.equal(got.reshape(add.shape), add)
+    scale = torch.rand(*lead, 16, 2)[..., 1]     # a row stride of 2
+    ptrs, meta = entry_args(blocks, coeffs, add, True, add, scale)
+    off = scale.storage_offset() + (ptrs[8] - scale.data_ptr()) // 4
+    got = torch.as_strided(scale, (n_l, 16), meta[25:27], off)
+    assert torch.equal(got.reshape(scale.shape), scale)
     ptrs, meta = entry_args(blocks, coeffs, None, False, add)
-    assert ptrs[6] == 0 and meta[4] == 0 and meta[23:] == [0, 0]
+    assert ptrs[6] == 0 and meta[4] == 0 and meta[23:] == [0, 0, 0, 0]
 
 
 def test_masked_svqb_drop_two_against_blocks_equal_the_stacked_base(rng):
